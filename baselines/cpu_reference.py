@@ -10,7 +10,7 @@ central-difference Jacobians (TightlyCoupledEKF.cpp:176-325) and
 Joseph-form update (cpp:545-596).  NumPy/BLAS stands in for Eigen; both
 are optimized CPU linear algebra.
 
-This is benchmark/parity infrastructure, not part of the TPU engine.
+This is benchmark/parity infrastructure, not part of the engine.
 """
 from __future__ import annotations
 

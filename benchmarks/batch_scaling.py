@@ -1,12 +1,11 @@
 """Batch-throughput curve + profiler trace for the data-parallel engine.
 
-VERDICT r3 next-round #4: batch-16 aggregate was 2.06x the single-
-sequence fps against a >=8x target, and the serializer was never
-identified.  This script measures the B in {1, 4, 16, 64} aggregate-fps
-curve at the bench operating point and (optionally, --trace) records a
-jax.profiler trace of the B=16 case for op-level attribution.
+Measures the B in {1, 4, 16, 64} aggregate-fps curve at the bench
+operating point (bench.make_frames, 120 frames) and (optionally,
+--trace) records a jax.profiler trace of the B=16 case for op-level
+attribution (benchmarks/parse_trace.py reads it).
 
-Writes benchmarks/batch_scaling.json.  Run on hardware:
+Writes results/batch_scaling.json.  Run on a GPU:
     python benchmarks/batch_scaling.py [--trace]
 """
 from __future__ import annotations
@@ -20,39 +19,23 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import bench  # noqa: E402
 import ekf_vio_tpu  # noqa: E402
-
-ekf_vio_tpu.enable_compile_cache()
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from ekf_vio_tpu import engine  # noqa: E402
 from ekf_vio_tpu.config import VIOConfig  # noqa: E402
 from ekf_vio_tpu.frontend import camera as cam_mod  # noqa: E402
-from ekf_vio_tpu.parallel.batched_engine import run_sequences_batched  # noqa: E402
+from ekf_vio_tpu.parallel.batched_engine import (  # noqa: E402
+    MICROBATCH, run_sequences_batched)
 
-W_IN, H_IN, N_FRAMES = 640, 480, 120
-
-
-def make_frames(seed=0):
-    import scipy.ndimage as ndi
-
-    rng = np.random.RandomState(seed)
-    shift = 2.0
-    shape = (H_IN + 64, W_IN + 64 + int(shift * N_FRAMES) + 8)
-    smooth = ndi.gaussian_filter(rng.uniform(0, 255, shape), 2.0)
-    blobs = (ndi.gaussian_filter(rng.uniform(0, 1, shape), 6.0) > 0.5) * 150.0
-    big = 0.4 * smooth + blobs + 30.0
-    big = ((big - big.min()) / (np.ptp(big) + 1e-9) * 255.0).astype(np.float32)
-    frames = np.stack(
-        [big[32:32 + H_IN,
-             32 + int(round(shift * i)):32 + int(round(shift * i)) + W_IN]
-         for i in range(N_FRAMES)])
-    return frames, np.arange(N_FRAMES, dtype=np.float32) / 20.0
+W_IN, H_IN, N_FRAMES = bench.W_IN, bench.H_IN, 120
 
 
 def main():
+    ekf_vio_tpu.enable_compile_cache()
+    device = bench.require_gpu()
     do_trace = "--trace" in sys.argv
     cfg = VIOConfig(max_features=128, min_new_feature_dist=8.0,
                     fast_threshold=30)
@@ -61,26 +44,14 @@ def main():
     cam = engine.make_hashable_camera(
         [[458.0 / s, 0, w / 2], [0, 458.0 / s, h / 2], [0, 0, 1]], w, h)
 
-    frames, times = make_frames()
+    frames, times = bench.make_frames(n_frames=N_FRAMES)
     small = jax.jit(lambda x: cam_mod.downscale_image(x, s))(
         jnp.asarray(frames))
     jax.block_until_ready(small)
 
-    report = {"device": str(jax.devices()[0]), "frames": N_FRAMES,
+    report = {"device": device, "card": bench.nvidia_smi(), "frames": N_FRAMES,
               "config": "640x480/4, 128 slots",
-              "analysis": (
-                  "Curve is monotone: large batches run as sequential "
-                  "16-lane micro-batches (parallel/batched_engine.py), the "
-                  "measured per-lane optimum — at B=64 in one program XLA "
-                  "materializes batch-minor layout transposes and the "
-                  "per-lane rate regresses ~6%. The asymptote is compute-"
-                  "bound, not latency-bound: per-lane device time falls "
-                  "from 0.86 ms (B=1) to 0.39 ms (B=16) and the B=1 "
-                  "pipeline already runs at ~45% of that per-lane floor, "
-                  "so aggregate speedup saturates near 2.2x; the floor "
-                  "itself is the fused tracker's per-feature corr-table "
-                  "matmuls (~73 ns/item, near back-to-back MXU issue "
-                  "latency at 8k features/frame).")}
+              "microbatch": MICROBATCH}
     fps1 = None
     for b in (1, 4, 16, 64):
         imgs_b = jnp.broadcast_to(small, (b,) + small.shape)
@@ -104,15 +75,14 @@ def main():
         print(f"B={b}: {fps:.1f} fps aggregate ({fps / fps1:.2f}x)", flush=True)
 
         if do_trace and b == 16:
-            trace_dir = "/tmp/jax_trace_b16"
+            trace_dir = bench.out_path("trace_b16")
             with jax.profiler.trace(trace_dir):
                 _, outs = run_sequences_batched(imgs_b, ts_b, cfg, cam)
                 jax.block_until_ready(outs)
             report["trace_dir"] = trace_dir
             print("trace written to", trace_dir)
 
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "batch_scaling.json")
+    out = bench.out_path("batch_scaling.json")
     with open(out, "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report))

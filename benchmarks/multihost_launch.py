@@ -1,17 +1,21 @@
 """Local 2-process scaling-efficiency harness — the executed version of
 the multi-host story (SURVEY.md §2.2 item 3; BASELINE "≥80% at 2 hosts").
 
-Real multi-host TPU hardware is unavailable here, so this launcher runs
-the REAL thing one level down: two OS processes, each owning 4 CPU
-devices, joined into one 8-device jax.distributed cluster (gloo
-collectives over localhost — the same code path a DCN fleet runs, minus
-the wire).  It times the data-sharded batched filter step at
+This launcher runs the multi-host code path one level down: two OS
+processes, each owning 4 CPU devices, joined into one 8-device
+jax.distributed cluster (gloo collectives over localhost — the same code
+path a multi-host fleet runs, minus the wire).  It times the
+data-sharded batched filter step at
 
   * 1 process × 4 devices  (batch = seqs_per_device · 4)
   * 2 processes × 4 devices (batch = seqs_per_device · 8)
 
-and reports weak-scaling efficiency = agg_2proc / (2 · agg_1proc).
-Writes benchmarks/multihost_scaling.json.
+and reports weak-scaling efficiency = agg_2proc / (2 · agg_1proc), a
+CPU number, not a GPU one.  Writes results/multihost_scaling.json.
+
+Every worker is pinned to the CPU (EKF_VIO_PLATFORM=cpu).  Never point
+it at a GPU: each JAX process reserves most of a card's memory when it
+starts, so several workers on one card fail or spoil each other.
 
 Usage:  python benchmarks/multihost_launch.py [--steps N]
 The pytest wrapper (tests/test_multiproc.py) runs this with few steps.
@@ -97,7 +101,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seqs-per-device", type=int, default=4)
-    ap.add_argument("--out", default=os.path.join(HERE, "multihost_scaling.json"))
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "results", "multihost_scaling.json"))
     args = ap.parse_args()
 
     one = run_cluster(1, 4, args.steps, args.seqs_per_device)

@@ -1,19 +1,18 @@
-"""Multi-host scaling-efficiency benchmark (ready to run on a pod slice).
+"""Multi-host scaling-efficiency benchmark.
 
 Measures aggregate frames/s of the batched filter step at 1 host and at
 N hosts, reporting efficiency = fps_N / (N · fps_1-extrapolated).  The
 BASELINE target is ≥80% at 2 hosts; since sequences are independent and
-``data`` is the only DCN-crossing axis, the expected efficiency is ~100%
-minus dispatch jitter.
+``data`` is the only axis that crosses hosts, the expected efficiency is
+~100% minus dispatch jitter.
 
-Launch (one command per host; on a Cloud TPU pod slice the coordinator
-auto-detects and the env vars are unnecessary):
+Launch (one command per host; the cluster is always given explicitly):
 
     EKF_VIO_COORDINATOR=host0:1234 EKF_VIO_NUM_PROCESSES=2 \
     EKF_VIO_PROCESS_ID=<i> python benchmarks/multihost_scaling.py
 
-Single-host fallback (this environment): runs the same code path on the
-local mesh and reports per-host numbers only.
+Without the cluster variables it runs the same code path on the local
+mesh and reports per-host numbers only.
 """
 from __future__ import annotations
 
@@ -71,8 +70,9 @@ def main(n_state: int = 1, seqs_per_device: int = 4, steps: int = 50,
         print("EKFVIO_REPORT " + json.dumps(report), flush=True)
         if write_json:
             out_path = os.path.join(
-                os.path.dirname(os.path.abspath(__file__)),
-                "multihost_scaling.json")
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                "results", "multihost_scaling.json")
+            os.makedirs(os.path.dirname(out_path), exist_ok=True)
             with open(out_path, "w") as f:
                 json.dump(report, f, indent=2)
     return report

@@ -1,10 +1,10 @@
 """Aggregate device-op durations from a jax.profiler trace directory.
 
 Reads the perfetto trace (trace.json.gz) written by jax.profiler.trace
-and prints the top-N ops by total device time, grouped by op name — the
-attribution tool for the batch-scaling investigation (VERDICT r3 #4).
+and prints the top-N ops by total GPU time, grouped by op name (e.g. on
+the trace benchmarks/batch_scaling.py --trace writes).
 
-Usage: python benchmarks/parse_trace.py /tmp/jax_trace_b16 [top_n]
+Usage: python benchmarks/parse_trace.py results/trace_b16 [top_n]
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ def main():
         trace = json.load(f)
 
     events = trace.get("traceEvents", [])
-    # device-lane events: pid/tid names containing "TPU" / "XLA Ops"
+    # device lanes: the profiler names each GPU's process "/device:GPU:<i>"
     name_by_pid = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
@@ -38,7 +38,7 @@ def main():
         if e.get("ph") != "X":
             continue
         pname = name_by_pid.get(e.get("pid"), "")
-        if "TPU" not in pname and "Device" not in pname:
+        if not pname.startswith("/device:GPU"):
             continue
         dur = e.get("dur", 0) / 1e3  # us -> ms
         key = e.get("name", "?")

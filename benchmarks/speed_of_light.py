@@ -1,16 +1,17 @@
-"""Speed-of-light / MFU analysis of the hot kernels on one TPU chip.
+"""Speed-of-light analysis of the hot kernels on one GPU.
 
 The north star demands "measure covariance-propagation and KLT kernel
 speed-of-light per chip".  The reference's timing harnesses print raw
 wall-clock only (reference: test/test_ekf.cpp:88-141,
 test/jacobian_test.cpp:50-72); this script adds the missing roofline:
 
-1. **Attainable ceilings are measured, not quoted.**  The per-chip
-   matmul peak at the filter's mandatory f32 precision (see
-   core/dynamics.propagate_covariance — bf16 passes NaN the filter) is
-   measured with a large square matmul; attainable HBM bandwidth with a
-   large saxpy.  Published v5e spec peaks (197 bf16 TFLOP/s, 819 GB/s)
-   are reported alongside for reference.
+1. **Attainable ceilings are measured, not quoted.**  The matmul rate
+   at the filter's mandatory f32 precision (see
+   core/dynamics.propagate_covariance — reduced-precision passes NaN the
+   filter) is measured with a large square matmul; attainable device
+   bandwidth with a large saxpy.  The card's published peaks (``PEAKS``,
+   keyed by ``device_kind``) are reported beside them; a card missing
+   from the table is an error.
 
 2. **Each hot kernel gets an analytic FLOP + byte count** and the
    resulting roofline bound t_sol = max(flops/peak_flops,
@@ -24,13 +25,12 @@ dispatch in the number):
   (TightlyCoupledEKF.cpp:113-114 is the reference's sparse analog);
 * full masked EKF update at the same sizes (S assembly + Cholesky +
   gain solve + Joseph form, TightlyCoupledEKF.cpp:559-596 analog);
-* the Pallas pyramidal-LK level-0 kernel at 640x480 / 128 features
-  (KLTTracker.cpp:61-64 analog) — counted two ways: algorithmic FLOPs
-  (what LK fundamentally needs) and issued MXU FLOPs (incl. the one-hot
-  selector matmuls the gather-free formulation trades gathers for);
+* the fused pyramidal-LK tracker kernel (frontend/pallas_lk.py) at
+  640x480 / 128 features (KLTTracker.cpp:61-64 analog), counted in
+  algorithmic FLOPs (what LK fundamentally needs);
 * the compound IMU interval propagation (10 samples, 128 slots).
 
-Writes benchmarks/speed_of_light.json.  Run on hardware:
+Writes results/speed_of_light.json.  Run on a GPU:
     python benchmarks/speed_of_light.py
 """
 from __future__ import annotations
@@ -44,18 +44,27 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import ekf_vio_tpu  # noqa: E402
-
-ekf_vio_tpu.enable_compile_cache()
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from ekf_vio_tpu.config import VIOConfig  # noqa: E402
-from ekf_vio_tpu.core import dynamics, filter as ekf, imu  # noqa: E402
+from ekf_vio_tpu.core import filter as ekf, imu  # noqa: E402
 
-V5E_BF16_PEAK = 197e12     # published spec, FLOP/s
-V5E_HBM_BW = 819e9         # published spec, bytes/s
+# Published dense peaks per device_kind (NVIDIA H100 SXM data sheet, no
+# sparsity, at the full 700 W power limit): FLOP/s and device bytes/s.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12, "tf32_flops": 495e12, "f32_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
+
+
+def published_peaks(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for {device_kind!r}; add the "
+                       "card to PEAKS with its source")
+    return PEAKS[device_kind]
 
 
 def timeit_device(step_fn, carry, iters=100, calls=3):
@@ -194,12 +203,10 @@ def bench_imu_interval(n, k_samples, peak_flops, peak_bw):
 
 
 def bench_klt_level(peak_flops, peak_bw):
-    """SHIPPING tracker (fused corr-table pallas_lk, full 3-level
-    pyramid) at the reference's native 640x480, 128 features — round 5:
-    the legacy per-level pallas_klt kernel this used to measure is no
-    longer the dispatch target at any resolution."""
+    """The tracker ``klt.track`` dispatches to (the fused kernel on a
+    GPU), full pyramid, at the reference's native 640x480, 128 features."""
     from ekf_vio_tpu.config import VIOConfig
-    from ekf_vio_tpu.frontend import pallas_lk, pyramid
+    from ekf_vio_tpu.frontend import klt, pyramid
 
     h, w, n = 480, 640, 128
     cfg = VIOConfig(max_features=n)
@@ -213,55 +220,45 @@ def bench_klt_level(peak_flops, peak_bw):
     valid = jnp.ones((n,), bool)
 
     def step(p):
-        g, _, _, _ = pallas_lk.track(pyr0, pyr1, p, p, valid, cfg)
+        g = klt.track(pyr0, pyr1, p, p, valid, cfg).points
         # value-preserving data dependency: 0.0*g could be constant-folded
         # under fast-math, dead-code-eliminating the kernel
         return p + 1e-30 * g
 
     t = timeit_device(step, pts, iters=30)
 
-    win, iters, patch = 21, 30, pallas_lk.PATCH
+    win, iters = 21, 30
     # Algorithmic FLOPs over the FULL pyramid: gradients + normal
     # equations once per level, then per iteration a bilinear window
-    # sample (~8 flop/px), residual and two correlations (~5) — the
-    # corr-table formulation replaces the per-iteration sampling with
-    # table blends, but the roofline counts what LK fundamentally needs.
+    # sample (~8 flop/px), residual and two correlations (~5), at the
+    # iteration cap (an upper bound: real features stop after a few).
     levels = 4
     alg = levels * n * (win * win) * (10 + iters * 13.0)
-    # Issued MXU FLOPs per level: row-strip extraction + column
-    # selection + sampling bmms + the corr-table bmm.
-    tw = pallas_lk._TW
-    issued = 0.0
-    for lvl in range(levels):
-        hl, wl = h >> lvl, w >> lvl
-        wp = wl + 2 * pallas_lk._PAD_IMG
-        hp = hl + 2 * pallas_lk._PAD_IMG
-        issued += 2 * (2.0 * n * patch * hp * wp)          # row strips
-        issued += 2 * (2.0 * n * patch * patch * wp)       # col select
-        issued += 2.0 * n * (3 * win * 3 * patch * patch)  # sampling
-        issued += 2.0 * n * 42 * win * (tw + win)          # corr bmm
     bytes_ = 2 * h * w * 4.0 * (1 + 0.25 + 0.0625 + 0.015625)
     r = roofline(alg, bytes_, t, peak_flops, peak_bw)
-    r["issued_mxu_flops"] = issued
-    r["issued_mxu_frac_of_bf16_peak"] = round(
-        issued / t / V5E_BF16_PEAK, 4)
-    r["note"] = ("algorithmic-FLOP roofline over the full fused pyramid "
-                 "track (pallas_lk); the gap to SoL is per-feature small-"
-                 "matmul issue latency, measured invariant to block size "
-                 "and operand placement")
+    r["tracker_backend"] = klt.selected_backend((h, w), n, cfg)
+    r["note"] = ("f32 CUDA-core arithmetic at the iteration cap against "
+                 "the measured f32 matmul rate; the window taps are "
+                 "gathers served from L2, so the byte count is one read "
+                 "of both pyramids")
     return r
 
 
 def main():
-    dev = jax.devices()[0]
+    import bench
+    import ekf_vio_tpu
+
+    ekf_vio_tpu.enable_compile_cache()
+    device = bench.require_gpu()
+    spec = published_peaks(device["kind"])
     peak_f32 = measure_matmul_peak_f32()
     peak_bf16 = measure_matmul_peak_bf16()
     bw = measure_hbm_bw()
 
     report = {
-        "device": str(dev),
-        "spec_bf16_peak_tflops": V5E_BF16_PEAK / 1e12,
-        "spec_hbm_bw_gbps": V5E_HBM_BW / 1e9,
+        "device": device,
+        "card": bench.nvidia_smi(),
+        "published_peaks": spec,
         "measured_bf16_matmul_tflops": round(peak_bf16 / 1e12, 2),
         "measured_f32_matmul_tflops": round(peak_f32 / 1e12, 2),
         "measured_hbm_bw_gbps": round(bw / 1e9, 1),
@@ -285,8 +282,7 @@ def main():
     report["kernels"]["klt_full_pyramid_640x480_128feat"] = r
     print(f"klt_full_pyramid: {json.dumps(r)}")
 
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "speed_of_light.json")
+    out = bench.out_path("speed_of_light.json")
     with open(out, "w") as f:
         json.dump(report, f, indent=2)
     print(f"wrote {out}")

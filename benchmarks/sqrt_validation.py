@@ -1,19 +1,19 @@
-"""Hardware validation of the square-root filter at large slot counts.
+"""GPU validation of the square-root filter at large slot counts.
 
-VERDICT r1 asked whether the Cholesky-factor form can retire the relative
-spectral floor (VIOConfig.sigma_jitter_rel — the covariance-form
-workaround for the f32 Cholesky of S NaNing at ~100 features on TPU,
-reference fixSigma stub: TightlyCoupledEKF.cpp:716-718).  This runs the
-closed-loop simulator at 128 and 503 feature slots on the real chip:
+Can the Cholesky-factor form retire the relative spectral floor
+(VIOConfig.sigma_jitter_rel — the covariance-form workaround for an f32
+Cholesky of S that can NaN at ~100 features; reference fixSigma stub:
+TightlyCoupledEKF.cpp:716-718)?  This runs the closed-loop simulator at
+128 and 503 feature slots on the card:
 
 * covariance form, floor ON  (the shipping default)
 * covariance form, floor OFF (expected to go non-finite at scale)
 * square-root form, floor OFF (must hold: PSD by construction)
 
 plus steady-state per-step timing for the cost comparison.  Writes
-benchmarks/sqrt_validation.json.
+results/sqrt_validation.json.
 
-Run on the TPU (no JAX_PLATFORMS override): python benchmarks/sqrt_validation.py
+Run on a GPU: python benchmarks/sqrt_validation.py
 """
 import json
 import os
@@ -21,10 +21,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import ekf_vio_tpu  # noqa: E402
-
-ekf_vio_tpu.enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +68,11 @@ def run_case(n_slots, square_root, floor_on, steps=300):
 
 
 def main():
-    device = jax.devices()[0]
+    import bench
+    import ekf_vio_tpu
+
+    ekf_vio_tpu.enable_compile_cache()
+    device = bench.require_gpu()
     results = []
     for n in (128, 503, 512):
         for form, floor in (("cov", True), ("cov", False), ("sqrt", False),
@@ -81,14 +81,13 @@ def main():
             results.append(r)
             print(json.dumps(r))
 
-    out = {"device": str(device),
+    out = {"device": device, "card": bench.nvidia_smi(),
        "note": ("form-vs-form accuracy must be compared on a common "
                 "platform against the float64 reference (0.049 m drift "
-                "at 300 steps) — see benchmarks/sqrt_analysis.md: the "
-                "TPU covariance numbers below the float64 drift are "
-                "platform rounding luck, not accuracy"),
+                "at 300 steps on the CPU); a number below that drift is "
+                "rounding luck, not accuracy"),
        "results": results}
-    path = os.path.join(os.path.dirname(__file__), "sqrt_validation.json")
+    path = bench.out_path("sqrt_validation.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=2)
     print(f"wrote {path}")

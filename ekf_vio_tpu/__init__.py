@@ -1,55 +1,47 @@
-"""ekf_vio_tpu — a TPU-native tightly-coupled EKF visual-inertial odometry
-engine (JAX / XLA / Pallas / pjit).
+"""ekf_vio_tpu — a tightly-coupled EKF visual-inertial odometry engine
+(JAX / XLA / Pallas).
 
 Built from scratch with the capabilities of the reference C++/ROS node
 k-sheridan/ekf_vio (see SURVEY.md): a single EKF jointly estimating a
 22-dim base camera state and every tracked feature (normalized image
 coords + inverse depth) with full cross-correlations, fed by FAST corner
-detection and pyramidal KLT tracking — redesigned TPU-first: static-shape
-masked feature slots, dense blocked covariance algebra on the MXU, exact
-autodiff Jacobians, Pallas front-end kernels, and mesh-sharded scaling.
+detection and pyramidal KLT tracking — redesigned for an accelerator:
+static-shape masked feature slots, dense covariance algebra, exact
+autodiff Jacobians, a fused Pallas tracker kernel, and mesh-sharded
+scaling.
 """
 
 import os as _os
 
+_DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
-def enable_compile_cache(cache_dir: str | None = None) -> None:
-    """Opt into a persistent XLA compilation cache.
 
-    The scanned rollouts compile in minutes cold (the mono-inertial FEJ
-    rollout measured ~7 min of XLA time for ~1 s of device work); with
-    the cache, every repeat invocation — bench reruns, ATE sweeps, CLI
-    sessions — loads the executable in seconds.  The analog of the
-    reference's per-frame timing discipline (EKFVIO.cpp:119-135) applied
-    to compile time.
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
 
-    Called by the shipped entry points (CLI, bench.py, benchmarks/*);
-    importing the library itself has NO side effects on global JAX
-    config — a host application that wants the cache calls this
-    explicitly.  Honors EKF_VIO_NO_COMPILE_CACHE=1 (no-op) and
-    EKF_VIO_COMPILE_CACHE_DIR (location override); never overrides a
-    cache dir the host already configured.
+    The scanned rollouts compile in minutes cold; with the cache every
+    repeat invocation (bench reruns, ATE sweeps, CLI sessions) loads the
+    executable in seconds.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses that
+    directory and this sets no other; otherwise the cache goes to the
+    fixed ``<repo>/.jax_cache`` (the path is part of the cache key, so it
+    must not move).  Called by the shipped entry points (CLI, bench.py,
+    chip_smoke.py, benchmarks/*); importing the library has no side
+    effects on JAX's configuration.
     """
-    if _os.environ.get("EKF_VIO_NO_COMPILE_CACHE"):
-        return
     import jax as _jax
 
-    if cache_dir is None:
-        cache_dir = _os.environ.get(
-            "EKF_VIO_COMPILE_CACHE_DIR",
-            _os.path.join(_os.path.dirname(_os.path.dirname(
-                _os.path.abspath(__file__))), ".jax_cache"))
-    try:
-        # respect a host application's own cache configuration: only fill
-        # in when nothing is configured (library etiquette)
-        if getattr(_jax.config, "jax_compilation_cache_dir", None) is None:
-            _jax.config.update("jax_compilation_cache_dir", cache_dir)
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 2.0)
-            _jax.config.update(
-                "jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # older jax without these knobs: cache is best-effort
-        pass
+    cache_dir = _jax.config.jax_compilation_cache_dir
+    if not cache_dir:
+        cache_dir = _DEFAULT_CACHE_DIR
+        _jax.config.update("jax_compilation_cache_dir", cache_dir)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return cache_dir
+
 
 from ekf_vio_tpu.config import VIOConfig
 from ekf_vio_tpu.core.filter import (

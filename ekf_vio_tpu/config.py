@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native EKF-VIO engine.
+"""Configuration for the EKF-VIO engine.
 
 Mirrors the knob names and defaults of the reference parameter system
 (reference: include/ekf_vio/Params.h:16-126, loaded at EKFVIO.cpp:20-67),
@@ -32,8 +32,6 @@ class VIOConfig:
     klt_eps: float = 0.01            # TermCriteria EPS (KLTTracker.cpp:64)
     klt_min_eigen: float = 1e-4      # D_KLT_MIN_EIGEN (Params.h:36)
     kill_pad: int = 11               # D_KILL_PAD (Params.h:33)
-    use_pallas_klt: bool = True      # fused Pallas level kernel on TPU
-    #   (large-enough levels only; XLA path covers the rest / CPU)
 
     # ---- image handling
     inverse_image_scale: int = 4     # D_INVERSE_IMAGE_SCALE (Params.h:28)
@@ -173,8 +171,9 @@ class VIOConfig:
     # f32 formation of S = HΣHᵀ+R carries relative error ~ε·λmax, so
     # eigenvalues below that are noise; flooring them equals inflating R
     # (a conservative, consistency-preserving regularization).  Without it
-    # the TPU blocked Cholesky NaNs at ~100 features on the first update,
-    # where Σ's rank-9 kinematic block (init variance 30) dominates.
+    # an f32 blocked Cholesky can NaN at ~100 features on the first
+    # update, where Σ's rank-9 kinematic block (init variance 30)
+    # dominates.
     sigma_jitter_rel: float = 1e-4
 
     def __post_init__(self):
@@ -204,14 +203,46 @@ class VIOConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "VIOConfig":
-        """Load overrides from a YAML profile (analog of params/*.yaml)."""
-        import yaml  # lazy; pyyaml ships with the image via jax deps
+        """Load overrides from a profile (analog of params/*.yaml).
 
+        Profiles are flat ``key: value`` maps with ``#`` comments; each
+        value is parsed as the type of the field it sets, so no YAML
+        library is needed.  Unknown keys are ignored, like ``from_dict``.
+        """
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        out = {}
         with open(path) as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+            for lineno, raw in enumerate(f, 1):
+                line = raw.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                key, sep, value = (t.strip() for t in line.partition(":"))
+                if not sep or not key or not value:
+                    raise ValueError(
+                        f"{path}:{lineno}: expected 'key: value', got {raw!r}")
+                if key in fields:
+                    out[key] = _parse_value(fields[key].type, value,
+                                            f"{path}:{lineno}")
+        return cls.from_dict(out)
 
     def replace(self, **kw) -> "VIOConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _parse_value(type_name: str, value: str, where: str):
+    """One profile value as the named field type ('int', 'float', 'bool'
+    or 'str'; annotations are strings under postponed evaluation)."""
+    if type_name == "bool":
+        low = value.lower()
+        if low not in ("true", "false"):
+            raise ValueError(f"{where}: expected true/false, got {value!r}")
+        return low == "true"
+    if type_name == "str":
+        return value.strip("'\"")
+    try:
+        return {"int": int, "float": float}[type_name](value)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"{where}: cannot read {value!r} as {type_name}") from e
 
 
 # Base-state index map (TightlyCoupledEKF.cpp:328-393):

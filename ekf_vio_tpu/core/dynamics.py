@@ -235,9 +235,8 @@ def build_dense_F(Fb, Ffb, Ff):
     nb = BASE_STATE_SIZE
     dtype = Fb.dtype
     # block assembly by concatenation + 2D masked-broadcast block
-    # diagonal — the index-scatter form lowered to a scalar-unit fusion
-    # on TPU (~1152-element scatter per frame), and the 4D eye-broadcast
-    # + reshape form paid a tiled-layout relayout copy
+    # diagonal, with no index scatter (a gather/scatter-free form; ROADMAP
+    # queue 3, item 2 A/Bs it against plain indexing on the GPU)
     from ekf_vio_tpu.core.state import block_diag_dense
 
     blk = block_diag_dense(Ff)
@@ -247,14 +246,13 @@ def build_dense_F(Fb, Ffb, Ff):
 
 
 def propagate_covariance(Sigma, Fb, Ffb, Ff, q_diag):
-    """Σ ← F Σ Fᵀ + Q as one dense MXU triple product.
+    """Σ ← F Σ Fᵀ + Q as one dense triple product.
 
     F is assembled dense ([D, D], D = 22+3N) and the propagation is two
     plain matmuls.  The structured block alternative below does ~8x fewer
-    FLOPs but measures ~2x *slower* on hardware at both N=128 and N=503 —
-    one large matmul keeps the MXU busy where many small einsums pay
-    per-op dispatch latency.  f32 matmul precision is mandatory (see
-    propagate_covariance_blocked's docstring).
+    FLOPs but many small einsums, each a separate launch; which one is
+    faster on the GPU is not measured yet.  f32 matmul precision is
+    mandatory (see propagate_covariance_blocked's docstring).
     """
     return _propagate_covariance_dense_f32(Sigma, Fb, Ffb, Ff, q_diag)
 
@@ -280,12 +278,12 @@ def propagate_covariance_blocked(Sigma, Fb, Ffb, Ff, q_diag):
 
     The block-diagonal products use einsum over [N,3,3] blocks so nothing
     materializes an [3N, 3N] operand with O((3N)²·3N) cost; the remaining
-    dense products are small (22-wide) and map straight onto the MXU.
+    dense products are small (22-wide).
 
-    All products run at HIGHEST matmul precision: the TPU MXU's default
-    bf16 passes cannot represent a covariance whose spectrum spans
-    1e-5 (measurement prior) to 1e2 (depth prior) — verified to NaN out
-    the filter on hardware within ~100 steps at default precision.
+    All products run at float32 matmul precision: reduced-precision
+    passes (bf16, TF32) cannot represent a covariance whose spectrum
+    spans 1e-5 (measurement prior) to 1e2 (depth prior); bf16 passes were
+    seen to NaN the filter within ~100 steps.
     """
     return _propagate_covariance_f32(Sigma, Fb, Ffb, Ff, q_diag)
 

@@ -1,7 +1,7 @@
 """TightlyCoupledEKF — functional facade over the core pieces.
 
 The reference bundles everything into one mutable class
-(reference: TightlyCoupledEKF.h:16-72).  The TPU-native equivalent is a
+(reference: TightlyCoupledEKF.h:16-72).  The equivalent here is a
 set of pure functions over a ``FilterState`` pytree, so the whole filter
 composes with jit / vmap / scan / shard_map.  This module re-exports the
 state ops and provides ``predict`` (process) to mirror the reference API:

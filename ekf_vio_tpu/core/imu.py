@@ -271,8 +271,8 @@ def _mean_chain(x0, batch: ImuSample, gravity_w):
     over a camera interval — the exact algebra of scanning
     ``_motion_step29`` with zero noise, reassociated into batched ops with
     O(log K) sequential depth.  The sequential scan was the latency floor
-    of the mono-inertial step (~200 dependent scalar-vector ops, none
-    filling the VPU — the roofline's 1.2%-of-SoL IMU interval).
+    of the mono-inertial step (~200 dependent scalar-vector ops, each too
+    small to fill the device).
 
     Derivation: with w_i = R(q_i) v_i (world velocity) and
     A_i = R(q_i)(accel_i − b_a) + g_w (world acceleration), the

@@ -48,26 +48,19 @@ Orthogonal transforms cannot amplify error, so the factor-space steps are
 backward-stable where the covariance form loses ~half the working
 precision to squaring — the reason this variant holds 503-slot updates in
 f32 with zero spectral floor while the floored-off covariance form
-diverges (benchmarks/sqrt_validation.py: cov/no-floor final pos err 2.1 m
-vs sqrt/no-floor 0.063 m at 128 slots).
+diverges (benchmarks/sqrt_validation.py checks this on the GPU).
 
-On the round-4 "accuracy inversion" (sqrt final pos err 0.063 vs
-covariance 0.020; rendered aligned ATE 0.131% vs 0.081%): root-caused
-this round, full write-up in benchmarks/sqrt_analysis.md.  Two real
-findings and one artifact:
+Two findings behind the current form:
 (1) the one-QR array form realizes the posterior of the λ-INFLATED R
     whenever the spectral floor is applied to the gain, i.e. Σ' + KλKᵀ —
     fixed below by a second Joseph-exact triangularization with the true
-    R (lockstep per-step |ΔΣ| vs float64: 3e-2 → 4e-7, now matching the
-    covariance path);
-(2) the scenario metric is dominated by the monocular filter's own gauge
-    drift: the float64 dense reference lands at 0.049 after 300 steps,
-    CPU float32 gives dense 0.0645 / sqrt 0.0632 (sqrt marginally
-    BETTER); the TPU covariance path's 0.020 sits below the float64
-    filter's own drift — platform rounding luck, not superior accuracy;
-(3) on the rendered scene the sqrt trajectory's RAW error is uniformly
-    lower (0.125 vs 0.141 m final); the aligned-ATE ordering flips only
-    through the Umeyama gauge fit of two near-identical trajectories.
+    R (lockstep per-step |ΔΣ| vs float64 on the CPU: 3e-2 → 4e-7, now
+    matching the covariance path);
+(2) the closed-loop scenario metric is dominated by the monocular
+    filter's own gauge drift: on the CPU the float64 dense reference
+    lands at 0.049 after 300 steps, float32 gives dense 0.0645 / sqrt
+    0.0632, so form-vs-form accuracy is compared against the float64
+    reference on one platform, never across platforms.
 """
 from __future__ import annotations
 

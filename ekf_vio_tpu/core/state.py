@@ -2,8 +2,8 @@
 
 The reference stores a dynamic ``std::list<Feature>`` plus a sparse Σ that
 is ``conservativeResize``d as features come and go
-(reference: TightlyCoupledEKF.h:29-34, TightlyCoupledEKF.cpp:58-94).  On
-TPU, dynamic shapes force recompiles, so the TPU-native design is a fixed
+(reference: TightlyCoupledEKF.h:29-34, TightlyCoupledEKF.cpp:58-94).
+Under jit, dynamic shapes force recompiles, so the design here is a fixed
 capacity of ``N_max`` feature *slots* with an ``active`` mask; Σ is a dense
 f32 ``[D, D]`` matrix, ``D = 22 + 3·N_max``.  Slot allocation/free replaces
 list insert/erase (and, unlike the reference, dead features actually free
@@ -130,12 +130,11 @@ def feature_rowcol_indices(n_max: int):
 
 
 # --------------------------------------------------------------------------
-# Gather/scatter-free index algebra.  TPU lowers advanced indexing (even
-# with static indices) to scalar-unit gather/scatter fusions — measured at
-# 20-35 us each per frame at D=406, a large slice of the scan body.  The
-# feature sub-blocks are STRIDED (rows 22+3i, +1, +2), so every hot access
-# is expressible as reshape + contiguous slice; diagonals as eye-masked
-# elementwise ops.
+# Gather/scatter-free index algebra.  The feature sub-blocks are STRIDED
+# (rows 22+3i, +1, +2), so every hot access is expressible as reshape +
+# contiguous slice, and diagonals as eye-masked elementwise ops, with no
+# gather or scatter.  Chosen on a machine where gathers were slow; on the
+# GPU it is not yet A/B'd against plain indexing (ROADMAP queue 3, item 2).
 # --------------------------------------------------------------------------
 
 
@@ -168,9 +167,9 @@ def diag_embed(v: jnp.ndarray) -> jnp.ndarray:
 def block_diag_dense(B: jnp.ndarray) -> jnp.ndarray:
     """[N, k, k] blocks -> [kN, kN] block diagonal, built directly in 2D.
 
-    The eye-broadcast 4D form ([N,k,N,k] -> reshape) pays a tiled-layout
-    relayout copy on TPU (~11-14 us at kN=256..384); this k²-term masked
-    broadcast stays in the final 2D layout and fuses into the consumer.
+    The eye-broadcast 4D form ([N,k,N,k] -> reshape) needs a relayout
+    copy; this k²-term masked broadcast stays in the final 2D layout and
+    fuses into the consumer.
     """
     n, k, _ = B.shape
     d = n * k

@@ -1,4 +1,4 @@
-"""EKF measurement update — dense, masked, MXU-shaped.
+"""EKF measurement update — dense, masked, fixed-shape.
 
 The reference's measurement model is a *linear selector* H that picks the
 (u, v) components of each successfully tracked feature out of the state
@@ -12,7 +12,7 @@ numerically careful recipe spelled out at TightlyCoupledEKF.cpp:545-552:
     Σ ← (I−KH)Σ(I−KH)ᵀ + KRKᵀ      (Joseph form)
     quaternion renormalized         (TightlyCoupledEKF.cpp:604-609)
 
-TPU-native realization:
+Realization here:
 
 * H is never materialized.  Because the selector indices are *static*
   (feature i's (u,v) always live at rows 22+3i, 22+3i+1), HΣ and ΣHᵀ are
@@ -44,9 +44,8 @@ from ekf_vio_tpu.core.state import (
 def block_diag_R(R: jnp.ndarray) -> jnp.ndarray:
     """[N, 2, 2] per-feature covariances -> [2N, 2N] block diagonal.
 
-    Built in 2D by masked broadcasts (state.block_diag_dense) — both the
-    scatter formulation (31 us/frame scalar-unit fusion) and the 4D
-    eye-broadcast + reshape (11 us relayout copy) are TPU traps."""
+    Built in 2D by masked broadcasts (state.block_diag_dense), with no
+    scatter and no 4D eye-broadcast + reshape relayout."""
     from ekf_vio_tpu.core.state import block_diag_dense
 
     return block_diag_dense(R)
@@ -77,8 +76,8 @@ def update_with_feature_positions(
     frame (they stay active and measured again next frame).  Default:
     no compaction (budget = N_max).
 
-    Runs at HIGHEST matmul precision: default MXU bf16 passes cannot hold
-    the covariance spectrum (1e-5..1e2) and NaN the filter on hardware.
+    Runs at float32 matmul precision: reduced-precision passes cannot
+    hold the covariance spectrum (1e-5..1e2) and NaN the filter.
     """
     return _update_f32(state, cfg, measured_uv, meas_cov, passed, budget)
 

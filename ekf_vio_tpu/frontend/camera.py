@@ -72,8 +72,8 @@ def in_kill_box(cam: CameraModel, px: jnp.ndarray, kill_pad: float) -> jnp.ndarr
 
 def downscale_image(img: jnp.ndarray, inverse_scale: int) -> jnp.ndarray:
     """Box-filter downscale by an integer factor (Frame.cpp:18-19 uses
-    cv::resize default bilinear; for integer factors an area mean is the
-    TPU-friendly equivalent and is what cv::INTER_AREA would do)."""
+    cv::resize default bilinear; for integer factors an area mean is a
+    reshape-and-mean and is what cv::INTER_AREA would do)."""
     if inverse_scale == 1:
         return img
     h, w = img.shape[-2:]

@@ -1,15 +1,15 @@
-"""FAST-9/16 corner detection — whole-image, branch-free, VPU-shaped.
+"""FAST-9/16 corner detection — whole-image, branch-free, elementwise.
 
 The reference calls cv::FAST with non-max suppression on the full frame
 (reference: EKFVIO.cpp:242) with threshold FAST_THRESHOLD (Params.h:24)
 after an optional Gaussian blur (EKFVIO.cpp:228-230).
 
-TPU-native design: the 16 Bresenham-circle neighbors are materialized as
-16 shifted views of the (padded) image, the segment test ("≥9 contiguous
-circle pixels all brighter than center+t or all darker than center−t")
-becomes 32 vectorized AND-reductions over static arc windows, and NMS is
-a 3x3 max-pool — everything is dense elementwise work XLA fuses into a
-handful of VPU passes.  No per-pixel branching, no dynamic shapes.
+Design: the 16 Bresenham-circle neighbors are 16 shifted views of the
+(padded) image, the segment test ("≥9 contiguous circle pixels all
+brighter than center+t or all darker than center−t") becomes 32
+vectorized AND-reductions over static arc windows, and NMS is a 3x3
+max-pool — dense elementwise work that XLA fuses into a few passes.  No
+per-pixel branching, no dynamic shapes.
 """
 from __future__ import annotations
 

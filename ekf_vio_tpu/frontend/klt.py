@@ -13,12 +13,13 @@ cv::calcOpticalFlowPyrLK (reference: KLTTracker.cpp:61-64):
 * per-feature constant 2x2 measurement covariance converted to metric by
   1/f² (KLTTracker.cpp:75-84)
 
-TPU-native design: every feature is a row of a batch — patch extraction is
-a vectorized bilinear gather [N, window²], the normal equations are
-closed-form 2x2 solves on the VPU, and the iteration loop is a
-``lax.while_loop`` with a per-feature convergence mask (no data-dependent
-shapes).  The pyramid level loop is a static Python unroll (shapes differ
-per level).
+Every feature is a row of a batch: patch extraction and window sampling
+are batched products, the normal equations are closed-form 2x2 solves,
+and the iteration loop is a ``lax.while_loop`` with a per-feature
+convergence mask (no data-dependent shapes).  The pyramid level loop is a
+static Python unroll (shapes differ per level).  On a GPU ``track``
+dispatches to the fused kernel in frontend/pallas_lk.py; this plain path
+is its reference.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from ekf_vio_tpu.config import VIOConfig
-from ekf_vio_tpu.frontend import pallas_klt, pallas_lk
+from ekf_vio_tpu.frontend import pallas_lk, pyramid
 
 
 class TrackResult(NamedTuple):
@@ -42,7 +43,7 @@ def sample_bilinear(img: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
     """Bilinear interpolation. img: [H, W]; pts: [..., 2] as (x, y).
 
     Out-of-range coordinates clamp to the border (callers bound-check
-    separately); implemented as a flat gather, the TPU-friendly form.
+    separately); implemented as a flat gather.
     """
     h, w = img.shape
     x = pts[..., 0]
@@ -79,15 +80,12 @@ def _window_offsets(win: int) -> jnp.ndarray:
 # --------------------------------------------------------------------------
 # Gather-free sampling: one-hot matmul patch extraction + window resampling.
 #
-# TPU gathers are scalar-unit work; a 30-iteration LK loop over 128
-# features × 441 window pixels × 4 bilinear taps is ~7M random accesses
-# per level and measures ~150 ms/frame.  The TPU-native formulation
-# exploits two facts: (a) a patch is a row-selection × image × column-
-# selection product, and (b) an LK window moves *rigidly*, so one shared
-# fractional offset serves every pixel — bilinear resampling of the whole
-# window is exactly  W = Ry · patch · Cxᵀ  with Ry/Cx built from
-# interpolating one-hot rows.  Everything lands on the MXU; the iteration
-# loop contains no gathers at all.
+# Two facts make sampling a pair of matrix products: (a) a patch is a
+# row-selection × image × column-selection product, and (b) an LK window
+# moves *rigidly*, so one shared fractional offset serves every pixel —
+# bilinear resampling of the whole window is exactly  W = Ry · patch · Cxᵀ
+# with Ry/Cx built from interpolating one-hot rows.  The iteration loop
+# contains no gathers at all.
 # --------------------------------------------------------------------------
 
 
@@ -99,11 +97,10 @@ def _extract_patches(img: jnp.ndarray, anchor: jnp.ndarray, p: int,
     the image border (the same border model as a padded pyramid).
 
     These image-height/width-sized matmuls are the dominant FLOPs of the
-    tracker; they run at ``sample_dtype`` (default bf16 — 3x the f32 MXU
-    rate).  One-hot selectors are *exact* in bf16 and 8-bit-origin image
-    intensities round to bf16 within 0.5/255, so the extracted patch is
-    the bf16-rounded image — selection, not arithmetic, happens here.
-    The subsequent LK normal equations stay in f32.
+    tracker; they run at ``sample_dtype`` (default bf16).  One-hot
+    selectors are *exact* in bf16, so the extracted patch is the
+    bf16-rounded image — selection, not arithmetic, happens here.  The
+    subsequent LK normal equations stay in f32.
     """
     h, w = img.shape
     ar = jnp.arange(p)
@@ -142,7 +139,7 @@ def _sample_windows(patch: jnp.ndarray, center: jnp.ndarray, win: int) -> jnp.nd
 
 def _patch_gradients(patch: jnp.ndarray):
     """Scharr gradients on [N, p, p] patches (smooth [3,10,3]/32 ⊗
-    derive [-1,0,1]), edge-replicated — dense VPU shifts, no convolution
+    derive [-1,0,1]), edge-replicated — dense shifts, no convolution
     over the full image."""
     smooth = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
     deriv = (-1.0, 0.0, 1.0)
@@ -251,20 +248,17 @@ def _track_level(prev_img, cur_img, q, g, valid, cfg: VIOConfig):
 
 
 def selected_backend(level0_shape, n: int, cfg: VIOConfig) -> str:
-    """Which tracker backend ``track`` dispatches to — 'pallas_lk',
-    'pallas_klt', or 'xla'.
+    """Which tracker ``track`` dispatches to: 'pallas_lk' (the fused GPU
+    kernel, frontend/pallas_lk.py) on a GPU when the kernel covers the
+    shapes, else 'xla' (``track_xla``).
 
-    The selection is a trace-time (static-shape) rule, so it can be
-    queried before running and ASSERTED by benchmarks: a silent
-    ``supported()`` fallback must fail the bench rather than quietly
-    change what the headline number measures.  ``track`` itself routes
-    through this function, so the two cannot diverge.
+    A static-shape rule, so benchmarks can query it before running and
+    report what they measured; ``track`` routes through it, so the two
+    cannot diverge.
     """
-    on_tpu = cfg.use_pallas_klt and jax.default_backend() == "tpu"
-    if on_tpu and pallas_lk.supported(level0_shape, n, cfg.klt_window_size):
+    if (jax.default_backend() == "gpu"
+            and pallas_lk.supported(n, cfg.klt_window_size)):
         return "pallas_lk"
-    if on_tpu and level0_shape[0] * level0_shape[1] >= 64 * 1024:
-        return "pallas_klt"
     return "xla"
 
 
@@ -285,58 +279,37 @@ def track(
       KLTTracker.cpp:53-64).
     valid: [N] bool — which rows are real features.
     """
-    levels = len(prev_pyr) - 1
-    # Skip levels smaller than the tracking window (cv::
-    # buildOpticalFlowPyramid clamps maxLevel the same way) — a 21x21
-    # window on a 16x16 level only aliases border content.
-    win = cfg.klt_window_size
-    top = 0
-    for lvl in range(levels + 1):
-        if min(prev_pyr[lvl].shape) >= win:
-            top = lvl
+    args = (prev_pyr, cur_pyr, prev_pts, init_pts, valid)
+    if selected_backend(prev_pyr[0].shape, prev_pts.shape[0], cfg) == "xla":
+        return track_xla(*args, cfg)
+
+    def fused(*a):
+        return TrackResult(*pallas_lk.track(*a, cfg))
+
+    # chosen again when lowering, so work placed on the host CPU of a GPU
+    # process still takes the plain path
+    return jax.lax.platform_dependent(
+        *args, cuda=fused, default=lambda *a: track_xla(*a, cfg))
+
+
+def track_xla(prev_pyr, cur_pyr, prev_pts, init_pts, valid,
+              cfg: VIOConfig) -> TrackResult:
+    """The plain tracker: ``_track_level`` from the coarsest used level
+    down.  It runs wherever the kernel does not, and is the reference the
+    kernel is tested against."""
+    top = pyramid.top_tracked_level(prev_pyr, cfg.klt_window_size)
     g = init_pts / float(2**top)
     ok = valid
-    min_eig0 = jnp.zeros(prev_pts.shape[0])
-    err0 = jnp.zeros(prev_pts.shape[0])
-
-    # On TPU the fused corr-table tracker (frontend/pallas_lk.py) handles
-    # the whole pyramid in two kernels per level with no sampling work in
-    # the iteration loop — faster than the XLA path at every measured
-    # size, and natively batched under vmap (the XLA path's per-iteration
-    # selector tensors scale linearly with the batch).
-    backend = selected_backend(prev_pyr[0].shape, prev_pts.shape[0], cfg)
-    if backend == "pallas_lk":
-        g2, ok2, err2, eig2 = pallas_lk.track(
-            prev_pyr, cur_pyr, prev_pts, init_pts, valid, cfg)
-        return TrackResult(points=g2, status=ok2, error=err2, min_eig=eig2)
-
-    # The first-generation fused level kernel (frontend/pallas_klt.py) is
-    # retained for whole-level tracking when the corr-table path cannot
-    # apply (feature counts off the block grid, large level-0 images).
-    use_pallas = backend == "pallas_klt"
-
     for lvl in range(top, -1, -1):
-        s = float(2**lvl)
-        q = prev_pts / s
-        if use_pallas and pallas_klt.supported(prev_pyr[lvl].shape, q.shape[0]):
-            g, min_eig, err, inb = pallas_klt.track_level_pallas(
-                prev_pyr[lvl], cur_pyr[lvl], q, g, ok,
-                win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps,
-                # the eigen gate applies at level 0 only (the XLA path's
-                # status semantics); disable it at coarse levels
-                min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
-        else:
-            g, min_eig, err, inb = _track_level(
-                prev_pyr[lvl], cur_pyr[lvl], q, g, ok, cfg)
-            if lvl == 0:
-                inb = inb & (min_eig > cfg.klt_min_eigen)
-        ok = ok & inb
+        q = prev_pts / float(2**lvl)
+        g, min_eig, err, inb = _track_level(
+            prev_pyr[lvl], cur_pyr[lvl], q, g, ok, cfg)
         if lvl > 0:
             g = g * 2.0
         else:
-            min_eig0, err0 = min_eig, err
-
-    return TrackResult(points=g, status=ok, error=err0, min_eig=min_eig0)
+            inb = inb & (min_eig > cfg.klt_min_eigen)
+        ok = ok & inb
+    return TrackResult(points=g, status=ok, error=err, min_eig=min_eig)
 
 
 def measurement_covariance_metric(cam_fx, cam_fy, n: int, cfg: VIOConfig):

@@ -1,62 +1,34 @@
-"""Fused pyramidal-LK tracker — correlation-table iterations, batch-native.
+"""Fused pyramidal-LK tracker: one GPU kernel for the whole pyramid.
 
-Replaces both the per-level XLA tracker (frontend/klt.py ``_track_level``)
-and the first-generation fused level kernel (frontend/pallas_klt.py) on
-TPU.  Two measured facts drive the redesign:
+Same semantics as the XLA tracker in frontend/klt.py (``_track_level``
+over the pyramid), which stays the reference: 21x21 window, per-level
+iteration cap 30, eps 0.01, min-eigen gate at level 0, +-5 px per-level
+search margin, initial-flow seeding (KLTTracker.cpp:61-64,
+Params.h:36,103-104).
 
-* The XLA path materializes [N, win, patch] one-hot selector tensors to
-  HBM on EVERY LK iteration (30 iters x 3 levels), which is bandwidth-
-  bound and scales linearly with the vmap batch — 0.85 ms at B=1 and
-  10.9 ms at B=16 on the 160x120 operating point.
-* The old Pallas kernel keeps the iteration loop on tiny per-feature
-  batched matmuls ([32,21,40]@[32,40,40]) that use ~1% of the MXU — the
-  judge-measured 1.2% of roofline on the 640x480 level.
+Why a kernel.  LK is a data-dependent loop of up to 30 iterations per
+level of tiny per-feature arithmetic.  XLA runs each iteration of
+``_track_level``'s ``lax.while_loop`` as separate launches and fetches the
+loop predicate to the host on every trip; here every iteration of every
+level runs inside one launch.
 
-The fix is algebraic: a bilinearly-resampled window is linear in the
-underlying patch, so the LK normal-equation terms
+Design (Pallas through Triton, after OpenCV's CUDA sparse pyramidal LK):
 
-    b_x = sum_p ix[p] * (template[p] - cur_window(g)[p])
+* one program per feature, its 21x21 window flattened onto a 512-wide
+  block (441 live lanes);
+* the window is read straight from the level image by computed offsets
+  (bilinear taps are gathers; the images are a few hundred KB and stay
+  in L2), so no patch is ever materialized;
+* template and Scharr gradients are sampled once per level, the 2x2
+  normal matrix is inverted once, and the iterations run in-kernel with
+  the feature's own convergence test;
+* the index arithmetic reproduces the reference's border model exactly:
+  a 32x32 patch anchored at floor(pos) - 15, clamped to the image, with
+  window taps clamped to the patch.  Intensities are rounded to bf16 like
+  the reference's patch extraction, so both paths see the same pixels.
 
-are, for ANY window position g, a 4-tap bilinear blend of the 2-D
-cross-correlation table
-
-    corr_x[dy, dx] = sum_ij ix[i, j] * cur_patch[i + dy, j + dx]
-
-(the bilinear weights pass through the sum).  The tables are computed
-ONCE per level on the MXU (one batched dot_general per feature block);
-every LK iteration then reads 4 taps per feature — pure VPU work with no
-sampling matmuls and no HBM traffic in the loop.
-
-Per pyramid level: one XLA-side per-lane row extraction plus two kernels:
-
-* ``_row_strips``    — XLA: per-lane one-hot ROW extraction as one large
-  [N·40, H]x[H, W] matmul per lane per image.  (Round 4: this was
-  previously inside the prep kernel, where every 32-feature grid
-  program re-multiplied the whole image — 51% of device time at
-  batch 16; hoisted per-lane it runs once per lane at full-matmul MXU
-  utilization and the image never enters kernel VMEM, so the working
-  set no longer scales with image HEIGHT at all.)
-* ``_prep_kernel``   — feature-blocked grid: column selection of the
-  40x40 patches from the strips, Scharr gradients, template/gradient
-  window sampling, Hessian + min-eigen, and the corr tables.
-* ``_iter_kernel``   — lane-agnostic feature-blocked grid over ALL
-  B*N features: the 30-iteration LK loop on the tables, convergence
-  masking, bounds/margin status, and (level 0) the final residual err
-  via one window resample from the cur patch.
-
-Images are edge-padded by ``_PAD_IMG`` before extraction so every
-feature inside the true image has a fully interior 40x40 patch — the
-window-base index range then provably fits the 16x16 corr table, and the
-border model (clamp-replicate) matches the XLA path's by construction.
-
-Batching: ``jax.custom_batching.custom_vmap`` maps the single-sequence
-call onto the natively batched kernels, so ``vmap``-ing the engine over
-lanes (parallel/batched_engine.py) hits one fused kernel instead of a
-serialized lifting.
-
-Reference semantics preserved: 21x21 window, per-level iteration cap 30,
-eps 0.01, min-eigen gate at level 0, +-5 px per-level search margin,
-initial-flow seeding (KLTTracker.cpp:61-64, Params.h:36,103-104).
+Batching: ``jax.custom_batching.custom_vmap`` maps a vmapped call onto
+one launch over all lanes' features (parallel/batched_engine.py).
 """
 from __future__ import annotations
 
@@ -64,614 +36,250 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-_MARGIN = 5        # px search range beyond the seed per level
-PATCH = 40         # per-feature patch side
-_PAD = 17          # patch origin: floor(pos) - _PAD
-_PAD_IMG = 24      # image edge padding: patches never clamp at borders
-_DT = 16           # corr table side (window base range [0, 15))
-_KR = 36           # patch rows touched by the table: dy + i <= 15 + 20
-_TW = _DT * _KR - (21 - 1)  # 556: flat table width, entry c' = dx*36 + dy
-_BLK = 32          # features per prep-kernel program
-_BLK2 = 256        # features per iter-kernel program
+from ekf_vio_tpu.frontend import pyramid
+
+_MARGIN = 5            # px search range beyond the seed per level
+_MAX_WINDOW_PIXELS = 1024  # window lanes per program (registers bound it)
+_NUM_WARPS = 4
+_BIG = float(2 ** 20)  # clamp before float->int: keeps indices defined
 
 
-def _selector(base_i, frac, rows, size, dtype):
-    """[B, rows, size] interpolating one-hot selectors (row i blends
-    columns base+i, base+i+1 with weight frac); indices clamp."""
-    nb = base_i.shape[0]
-    cols = jax.lax.broadcasted_iota(jnp.int32, (nb, rows, size), 2)
-    idx = base_i[:, :, None] + jax.lax.broadcasted_iota(
-        jnp.int32, (nb, rows, size), 1)
-    a = jnp.clip(idx, 0, size - 1)
-    b = jnp.clip(idx + 1, 0, size - 1)
-    f = frac[:, :, None].astype(dtype)
-    return (jnp.where(cols == a, 1.0, 0.0).astype(dtype) * (1.0 - f)
-            + jnp.where(cols == b, 1.0, 0.0).astype(dtype) * f)
+def supported(n: int, win: int = 21) -> bool:
+    """Whether the kernel covers this call: any image and feature count,
+    windows up to 32x32 (the flattened window must fit one block)."""
+    return n > 0 and 2 <= win and win * win <= _MAX_WINDOW_PIXELS
 
 
-def _int_selector(base_i, rows, size, dtype):
-    nb = base_i.shape[0]
-    cols = jax.lax.broadcasted_iota(jnp.int32, (nb, rows, size), 2)
-    idx = base_i[:, :, None] + jax.lax.broadcasted_iota(
-        jnp.int32, (nb, rows, size), 1)
-    return jnp.where(cols == jnp.clip(idx, 0, size - 1), 1.0,
-                     0.0).astype(dtype)
+def _ifloor(x):
+    return jnp.floor(jnp.clip(x, -_BIG, _BIG)).astype(jnp.int32)
 
 
-def _bdot(a, b):  # [B,m,k] @ [B,k,n] -> [B,m,n], f32 accumulate
-    return jax.lax.dot_general(
-        a, b, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
+def _lk_kernel(*refs, shapes, n_per_lane, win, iters, eps, min_eigen):
+    n_lv = len(shapes)
+    prev_refs, cur_refs = refs[:n_lv], refs[n_lv:2 * n_lv]
+    (qx_ref, qy_ref, gx_ref, gy_ref, valid_ref,
+     ox_ref, oy_ref, ok_ref, err_ref, eig_ref) = refs[2 * n_lv:]
 
+    f = pl.program_id(0)
+    lane = lax.div(f, n_per_lane)
+    half = (win - 1) // 2
+    m = _MARGIN
+    p = win + 2 * m + 1                      # reference patch side
+    wp = pl.next_power_of_2(win * win)
+    k = lax.broadcasted_iota(jnp.int32, (wp,), 0)
+    wi = lax.div(k, win)                     # window row
+    wj = lax.rem(k, win)                     # window col
+    live_px = k < win * win
+    area = float(win * win)
 
-def _bdot_t(a, b):  # [B,m,k] @ [B,n,k] -> [B,m,n]
-    return jax.lax.dot_general(
-        a, b, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
+    def wsum(x):
+        return jnp.sum(jnp.where(live_px, x, 0.0))
 
+    px0, py0 = qx_ref[f], qy_ref[f]
+    top = n_lv - 1
+    gx = gx_ref[f] / float(2 ** top)
+    gy = gy_ref[f] / float(2 ** top)
+    ok = valid_ref[f] > 0
 
-def _row_strips(imgs, y0, n_per_lane):
-    """[BN, PATCH, W] bf16 row strips: per-lane one-hot row extraction as
-    ONE large matmul per lane (XLA-side — this was the dominant cost of
-    the old in-kernel extraction, where every 32-feature grid program
-    re-multiplied the whole image; hoisted per-lane it runs 4x fewer
-    FLOPs at far better MXU utilization and the image never enters the
-    kernel's VMEM).
+    for lvl in range(top, -1, -1):
+        h, w = shapes[lvl]
+        prev_ref, cur_ref = prev_refs[lvl], cur_refs[lvl]
+        s = float(2 ** lvl)
+        qx, qy = px0 / s, py0 / s
 
-    imgs: [L, H, W] padded level images.  y0: [BN] int32 patch-row
-    origins (BN = L * n_per_lane).  Exact: one-hot selection in bf16.
-    """
-    lanes, h, w = imgs.shape
-    ys = jnp.clip(y0[:, None] + jnp.arange(PATCH)[None], 0, h - 1)  # [BN,40]
-    rowsel = jax.nn.one_hot(
-        ys.reshape(lanes, n_per_lane * PATCH), h, dtype=jnp.bfloat16)
-    rows = jax.lax.dot_general(
-        rowsel, imgs.astype(jnp.bfloat16),
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)              # [L, N*40, W]
-    return rows.astype(jnp.bfloat16).reshape(lanes * n_per_lane, PATCH, w)
+        def pix(ref, r, c):
+            rr = jnp.clip(r, 0, h - 1)
+            cc = jnp.clip(c, 0, w - 1)
+            return ref[lane, rr, cc].astype(jnp.float32)
 
+        def taps(anchor, center, idx):
+            """Window base and fraction along one axis, and the two tap
+            coordinates (patch-clamped, then offset by the anchor)."""
+            base = center - half
+            b0 = jnp.floor(base)
+            b0i = _ifloor(base)
+            a = anchor + jnp.clip(b0i + idx, 0, p - 1)
+            b = anchor + jnp.clip(b0i + idx + 1, 0, p - 1)
+            return a, b, base - b0
 
-def _patches_from_strips(rows_ref, px0):
-    """[B, PATCH, PATCH] f32 patches from row strips via per-block column
-    selection (bf16 one-hot bmm — exact).  px0: [B, 1] int32."""
-    w = rows_ref.shape[-1]
-    colsel = _int_selector(px0, PATCH, w, jnp.bfloat16)        # [B,40,W]
-    return _bdot_t(rows_ref[:].astype(jnp.bfloat16), colsel)   # f32
+        def lerp(v00, v01, v10, v11, fx, fy):
+            return ((1.0 - fy) * ((1.0 - fx) * v00 + fx * v01)
+                    + fy * ((1.0 - fx) * v10 + fx * v11))
 
+        # --- template and gradients around the prev position
+        ax = _ifloor(qx) - (half + m)
+        ay = _ifloor(qy) - (half + m)
+        ca, _, tfx = taps(ax, qx - ax.astype(jnp.float32), wj)
+        ra, _, tfy = taps(ay, qy - ay.astype(jnp.float32), wi)
+        # the template's taps sit inside the patch (base = m + frac), so
+        # its second tap is a + 1 and the Scharr stencil reads the 4x4
+        # neighbourhood [a-1, a+2] of the image, clamped per pixel
+        nb = {(dy, dx): pix(prev_ref, ra + dy, ca + dx)
+              for dy in (-1, 0, 1, 2) for dx in (-1, 0, 1, 2)}
+        sm = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
 
-def _col_patches(strips, x0):
-    """[BN, PATCH, PATCH] bf16 patches: per-feature column selection from
-    the row strips as one batched bf16 one-hot matmul, XLA-side.
+        def grad_x(y, x):
+            return sum(sm[i] * (nb[(y + i - 1, x + 1)] - nb[(y + i - 1, x - 1)])
+                       for i in range(3))
 
-    Used for wide levels whose [BLK, PATCH, Wp] strips would blow the
-    prep kernel's VMEM budget (640-wide level 0 at the reference's native
-    resolution): with selection hoisted here the kernel's working set is
-    image-size-independent.  Exact — one-hot selection of bf16-rounded
-    image values loses nothing (the in-kernel path selects from the same
-    bf16 strips)."""
-    w = strips.shape[-1]
-    xs = jnp.clip(x0[:, None] + jnp.arange(PATCH)[None], 0, w - 1)
-    colsel = jax.nn.one_hot(xs, w, dtype=jnp.bfloat16)         # [BN,40,W]
-    return jax.lax.dot_general(
-        strips, colsel, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+        def grad_y(y, x):
+            return sum(sm[i] * (nb[(y + 1, x + i - 1)] - nb[(y - 1, x + i - 1)])
+                       for i in range(3))
 
+        tpl = lerp(nb[(0, 0)], nb[(0, 1)], nb[(1, 0)], nb[(1, 1)], tfx, tfy)
+        ix = lerp(grad_x(0, 0), grad_x(0, 1), grad_x(1, 0), grad_x(1, 1),
+                  tfx, tfy)
+        iy = lerp(grad_y(0, 0), grad_y(0, 1), grad_y(1, 0), grad_y(1, 1),
+                  tfx, tfy)
 
-def _scharr(patch):
-    """Scharr x/y derivatives of [B, H, W] patches, edge-replicated."""
-    def shift_rows(x, d):
-        if d == 0:
-            return x
-        if d > 0:
-            return jnp.concatenate([x[:, d:, :], x[:, -1:, :].repeat(d, 1)], 1)
-        return jnp.concatenate([x[:, :1, :].repeat(-d, 1), x[:, :d, :]], 1)
+        gxx, gxy, gyy = wsum(ix * ix), wsum(ix * iy), wsum(iy * iy)
+        det_half = jnp.sqrt(jnp.maximum((gxx - gyy) ** 2 / 4.0 + gxy * gxy,
+                                        0.0))
+        min_eig = ((gxx + gyy) / 2.0 - det_half) / area
+        det = gxx * gyy - gxy * gxy
+        inv_ok = det > 1e-12
+        det_safe = jnp.where(inv_ok, det, 1.0)
+        i00, i01, i11 = gyy / det_safe, -gxy / det_safe, gxx / det_safe
 
-    def shift_cols(x, d):
-        if d == 0:
-            return x
-        if d > 0:
-            return jnp.concatenate([x[:, :, d:], x[:, :, -1:].repeat(d, 2)], 2)
-        return jnp.concatenate([x[:, :, :1].repeat(-d, 2), x[:, :, :d]], 2)
+        # --- search window in the cur image, anchored at the incoming guess
+        g0x, g0y = gx, gy
+        cx0 = _ifloor(g0x) - (half + m)
+        cy0 = _ifloor(g0y) - (half + m)
+        cx0f, cy0f = cx0.astype(jnp.float32), cy0.astype(jnp.float32)
 
-    s = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
-    sm_r = sum(shift_rows(patch, d) * s[d + 1] for d in (-1, 0, 1))
-    sm_c = sum(shift_cols(patch, d) * s[d + 1] for d in (-1, 0, 1))
-    gx = shift_cols(sm_r, 1) - shift_cols(sm_r, -1)
-    gy = shift_rows(sm_c, 1) - shift_rows(sm_c, -1)
-    return gx, gy
+        def cur_window(x, y):
+            c_a, c_b, fx = taps(cx0, x - cx0f, wj)
+            r_a, r_b, fy = taps(cy0, y - cy0f, wi)
+            return lerp(pix(cur_ref, r_a, c_a), pix(cur_ref, r_a, c_b),
+                        pix(cur_ref, r_b, c_a), pix(cur_ref, r_b, c_b),
+                        fx, fy)
 
+        def body(carry):
+            it, x, y, _ = carry
+            r = tpl - cur_window(x, y)
+            bx, by = wsum(r * ix), wsum(r * iy)
+            dx = i00 * bx + i01 * by
+            dy = i01 * bx + i11 * by
+            return it + 1, x + dx, y + dy, dx * dx + dy * dy < eps * eps
 
-def _sample(patch, center, win):
-    """Bilinear [B, win, win] windows at float in-patch centers."""
-    base = center - (win - 1) / 2.0
-    bx = jnp.floor(base[:, 0:1])
-    by = jnp.floor(base[:, 1:2])
-    ry = _selector(by.astype(jnp.int32), base[:, 1:2] - by, win, PATCH,
-                   patch.dtype)
-    cx = _selector(bx.astype(jnp.int32), base[:, 0:1] - bx, win, PATCH,
-                   patch.dtype)
-    return _bdot_t(_bdot(ry, patch), cx)
+        def cond(carry):
+            it, _, _, done = carry
+            return (it < iters) & jnp.logical_not(done)
 
+        # features that cannot step (invalid, lost at a coarser level,
+        # singular normal matrix) start "done" and keep their guess
+        _, gx, gy, _ = lax.while_loop(
+            cond, body, (jnp.int32(0), gx, gy, jnp.logical_not(ok & inv_ok)))
 
-def _prep_kernel(prev_rows_ref, cur_rows_ref, px0_ref, cx0_ref,
-                 q_ref, g_ref, po_ref, co_ref,
-                 corr_ref, hinv_ref, a_ref, me_ref, co_out_ref,
-                 cs_ref, tpl_ref, *, win, emit_cs, from_patches=False):
-    """Per-level preparation: patches (column selection from the
-    XLA-extracted row strips — or, for wide levels, pre-selected
-    [B, PATCH, PATCH] patches), gradients, Hessian, corr tables."""
-    b = q_ref.shape[0]
-    q = q_ref[:]                                   # [B,2] padded level px
+        within = (jnp.abs(gx - g0x) <= m) & (jnp.abs(gy - g0y) <= m)
+        in_bounds = ((gx >= 1) & (gy >= 1) & (gx < w - 2) & (gy < h - 2)
+                     & (qx >= 1) & (qy >= 1) & (qx < w - 2) & (qy < h - 2))
+        ok = ok & in_bounds & inv_ok & within
+        if lvl > 0:
+            gx, gy = gx * 2.0, gy * 2.0
+        else:
+            ok = ok & (min_eig > min_eigen)
+            eig0 = min_eig
+            err0 = wsum(jnp.abs(tpl - cur_window(gx, gy))) / area
 
-    if from_patches:
-        ps = prev_rows_ref[:].astype(jnp.float32)  # [B,40,40] bf16 in
-        cs = cur_rows_ref[:].astype(jnp.float32)
-    else:
-        ps = _patches_from_strips(prev_rows_ref, px0_ref[:])  # [B,40,40]
-        cs = _patches_from_strips(cur_rows_ref, cx0_ref[:])
-
-    po = po_ref[:]
-    co = co_ref[:]
-
-    # template + gradient windows sampled with SHARED selectors in ONE
-    # bmm pair: [ps; gx; gy] stacked along the sublane axis and a
-    # block-structured row selector — batched-matmul items are the cost
-    # unit on the MXU (Mosaic serializes the batch), so 6 bmms become 2.
-    c_prev = q - po
-    gx, gy = _scharr(ps)
-    # bf16 sampling: the patches are bf16-rounded image data already
-    # (bf16 one-hot extraction, same as the XLA path); bf16 selector
-    # fracs shift the LK fixed point by ~2e-4 px, well under eps=0.01,
-    # and bf16 matmuls run 4x the f32 MXU rate.
-    patch3 = jnp.concatenate([ps, gx, gy], 1).astype(jnp.bfloat16)
-    base = c_prev - (win - 1) / 2.0
-    bxf = jnp.floor(base[:, 0:1])
-    byf = jnp.floor(base[:, 1:2])
-    rows3 = 3 * win
-    riota = jax.lax.broadcasted_iota(jnp.int32, (b, rows3, 3 * PATCH), 1)
-    i_part = riota % win
-    t_part = riota // win
-    cols3 = jax.lax.broadcasted_iota(jnp.int32, (b, rows3, 3 * PATCH), 2)
-    idx3 = (byf.astype(jnp.int32)[:, :, None] + i_part + t_part * PATCH)
-    lim_lo = t_part * PATCH
-    lim_hi = t_part * PATCH + PATCH - 1
-    a3 = jnp.clip(idx3, lim_lo, lim_hi)
-    b3 = jnp.clip(idx3 + 1, lim_lo, lim_hi)
-    # selector weights built in f32 (bf16 [B,1,1] broadcasts are
-    # unsupported in Mosaic), cast to bf16 for the 4x-rate matmuls
-    fy3 = (base[:, 1:2] - byf)[:, :, None]
-    ry3 = (jnp.where(cols3 == a3, 1.0, 0.0) * (1.0 - fy3)
-           + jnp.where(cols3 == b3, 1.0, 0.0) * fy3).astype(patch3.dtype)
-    cx3 = _selector(bxf.astype(jnp.int32), base[:, 0:1] - bxf, win, PATCH,
-                    jnp.float32).astype(patch3.dtype)
-    tmp3 = _bdot(ry3, patch3)
-    out3 = _bdot_t(tmp3, cx3)                              # [B,63,21]
-    tpl = out3[:, 0:win, :]
-    ix = out3[:, win:2 * win, :]
-    iy = out3[:, 2 * win:3 * win, :]
-
-    def wsum(x, y):
-        return jnp.sum(jnp.sum(x * y, -1), -1, keepdims=True)
-
-    # LK normal equations use the bf16-rounded gradients CONSISTENTLY:
-    # the same rounding enters a (template term) and the corr tables, so
-    # b_x = a_x - blend(corr_x) incurs only f32 accumulation error — no
-    # systematic offset from mixed precision.
-    ix16 = ix.astype(jnp.bfloat16)
-    iy16 = iy.astype(jnp.bfloat16)
-    ixf = ix16.astype(jnp.float32)
-    iyf = iy16.astype(jnp.float32)
-
-    gxx = wsum(ixf, ixf)
-    gxy = wsum(ixf, iyf)
-    gyy = wsum(iyf, iyf)
-    tr = gxx + gyy
-    det_half = jnp.sqrt(jnp.maximum((gxx - gyy) ** 2 / 4.0 + gxy * gxy, 0.0))
-    min_eig = (tr / 2.0 - det_half) / (win * win)
-    det = gxx * gyy - gxy * gxy
-    inv_ok = det > 1e-12
-    det_safe = jnp.where(inv_ok, det, 1.0)
-
-    a_x = wsum(ixf, tpl)
-    a_y = wsum(iyf, tpl)
-
-    # corr tables: corr[b, d, dx*36+dy] = sum_ij grad_d[b,i,j] cs[b,i+dy,j+dx]
-    # Mosaic-shaped two-step: ONE single-contraction bmm
-    #   T[b, (d,i), (dx,k)] = sum_j grad_d[b,i,j] * cs[b,k,j+dx]
-    # with rhs built by concatenating 16 lane-shifted patch slices along
-    # the EXISTING sublane axis (dx-major, lane index dx*36+k), followed
-    # by the diagonal-band reduction corr[c'] = sum_i T[..., i, c'+i]
-    # (k = i+dy makes the band a CONTIGUOUS lane window per i).  The
-    # table lives in the sparse c' = dx*36+dy layout — multi-dim
-    # contractions, new-axis stacks and lane-merging reshapes are all
-    # rejected by Mosaic; this formulation needs none of them.
-    ix2 = jnp.concatenate([ix16, iy16], 1)                 # [B,42,21] d-major
-
-    def lane_shift(x, d):
-        # left-shift along the lane axis with zero fill — normalizes the
-        # vector layout to offset 0 so the sublane concat below is legal
-        if d == 0:
-            return x
-        return jnp.concatenate([x[:, :, d:], jnp.zeros_like(x[:, :, :d])], 2)
-
-    cs16 = cs.astype(jnp.bfloat16)
-    cs36 = cs16[:, :_KR, :]
-    cs2 = jnp.concatenate(
-        [lane_shift(cs36, dx)[:, :, :win] for dx in range(_DT)], 1)  # [B,576,21]
-    T = _bdot_t(ix2, cs2)                                  # [B,42,576] f32
-    T4 = T.reshape(b, 2, win, _KR * _DT)
-    corr = T4[:, :, 0, 0:_TW]
-    for i in range(1, win):
-        corr = corr + T4[:, :, i, i: i + _TW]
-
-    corr_ref[:] = corr
-    hinv_ref[:] = jnp.concatenate(
-        [gyy / det_safe, -gxy / det_safe, gxx / det_safe,
-         inv_ok.astype(jnp.float32)], -1)                  # [B,4]
-    a_ref[:] = jnp.concatenate([a_x, a_y], -1)
-    me_ref[:] = min_eig
-    co_out_ref[:] = co
-    if emit_cs:
-        cs_ref[:] = cs16
-        tpl_ref[:] = tpl
-    else:
-        cs_ref[:] = jnp.zeros((1, 1, 1), jnp.bfloat16)
-        tpl_ref[:] = jnp.zeros((1, 1, 1), jnp.float32)
-
-
-def _iter_kernel(corr_ref, hinv_ref, a_ref, me_ref, co_ref,
-                 q_ref, g_ref, valid_ref, cs_ref, tpl_ref,
-                 g_out, ok_out, eig_out, err_out,
-                 *, win, iters, eps, min_eigen, true_h, true_w, emit_err):
-    """LK iterations on the corr tables + status for one pyramid level."""
-    b = g_ref.shape[0]
-    corr = corr_ref[:]                             # [B,2,556] f32
-    hv = hinv_ref[:]                               # [B,4]
-    i00, i01, i11 = hv[:, 0:1], hv[:, 1:2], hv[:, 2:3]
-    inv_ok = hv[:, 3:4] > 0.5
-    a = a_ref[:]                                   # [B,2]
-    co = co_ref[:]                                 # [B,2]
-    q = q_ref[:]
-    g0 = g_ref[:]
-    valid = valid_ref[:] > 0.5                     # [B,1]
-    half = (win - 1) / 2.0
-
-    # flat (dx*36+dy) component iotas for the 4-tap bilinear blend
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, (b, _TW), 1)
-    dx_iota = c_iota // _KR
-    dy_iota = c_iota - dx_iota * _KR
-
-    def blend_w(base1, iot):                       # [B,1] -> [B,_TW]
-        b0 = jnp.clip(jnp.floor(base1), 0.0, _DT - 2.0)
-        f = jnp.clip(base1 - b0, 0.0, 1.0)
-        b0i = b0.astype(jnp.int32)
-        return (jnp.where(iot == b0i, 1.0, 0.0) * (1.0 - f)
-                + jnp.where(iot == b0i + 1, 1.0, 0.0) * f)
-
-    track_f = (valid & inv_ok).astype(jnp.float32)
-
-    def cond(carry):
-        it, _, live = carry
-        return (it < iters) & (jnp.max(live) > 0.0)
-
-    def body(carry):
-        it, g, live = carry
-        base = g - co - half                       # window base, patch coords
-        w = (blend_w(base[:, 0:1], dx_iota)
-             * blend_w(base[:, 1:2], dy_iota))     # [B,556], 4 nonzeros
-        val = jnp.sum(w[:, None, :] * corr, 2)     # [B,2]
-        bx = a[:, 0:1] - val[:, 0:1]
-        by = a[:, 1:2] - val[:, 1:2]
-        delta = jnp.concatenate(
-            [i00 * bx + i01 * by, i01 * bx + i11 * by], -1)
-        g = g + delta * live
-        conv = (jnp.sum(delta * delta, -1, keepdims=True)
-                < eps * eps).astype(jnp.float32)
-        live = live * (1.0 - conv)
-        return it + 1, g, live
-
-    # while_loop (not fori): once every live feature has converged the
-    # remaining iterations are no-ops — real sequences converge in ~5
-    # of the 30 permitted iterations (KLTTracker.cpp:63-64 semantics:
-    # count OR eps, whichever first)
-    _, g, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), g0, track_f))
-
-    within = jnp.all(jnp.abs(g - g0) <= _MARGIN, -1, keepdims=True)
-    # bounds in TRUE level coordinates (kernel works in padded coords)
-    gt = g - _PAD_IMG
-    qt = q - _PAD_IMG
-    inb = ((gt[:, 0:1] >= 1) & (gt[:, 1:2] >= 1)
-           & (gt[:, 0:1] < true_w - 2) & (gt[:, 1:2] < true_h - 2)
-           & (qt[:, 0:1] >= 1) & (qt[:, 1:2] >= 1)
-           & (qt[:, 0:1] < true_w - 2) & (qt[:, 1:2] < true_h - 2))
-    me = me_ref[:]
-    ok = (valid & inv_ok & within & inb
-          & (me > min_eigen))                      # [B,1]
-
-    g_out[:] = g
-    ok_out[:] = ok.astype(jnp.float32)
-    eig_out[:] = me
-    if emit_err:
-        # final residual needs one true window resample (|.| is nonlinear
-        # so it cannot come from the corr tables)
-        cs = cs_ref[:].astype(jnp.float32)
-        cur = _sample(cs, g - co, win)
-        tpl = tpl_ref[:]
-        err_out[:] = jnp.mean(jnp.mean(jnp.abs(tpl - cur), -1), -1,
-                              keepdims=True)
-    else:
-        err_out[:] = jnp.zeros((b, 1), jnp.float32)
+    ox_ref[f] = gx
+    oy_ref[f] = gy
+    ok_ref[f] = ok.astype(jnp.int32)
+    err_ref[f] = err0
+    eig_ref[f] = eig0
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "win", "iters", "eps", "min_eigen", "true_shapes", "interpret"))
+    "win", "iters", "eps", "min_eigen", "interpret"))
 def _track_batched(prev_levels, cur_levels, prev_pts, init_pts, valid,
-                   *, win, iters, eps, min_eigen, true_shapes, interpret):
-    """Batched fused pyramid track.
-
-    prev_levels/cur_levels: tuples of [B, Hl, Wl] level images (finest
-    first; only levels with min(true dim) >= win are passed).
-    prev_pts/init_pts: [B, N, 2] level-0 px.  valid: [B, N] bool.
-    Returns (points [B,N,2], ok [B,N], err [B,N], min_eig [B,N]).
-    """
-    B, N, _ = prev_pts.shape
-    bn = B * N
-    n_levels = len(prev_levels)
-
-    q0 = prev_pts.reshape(bn, 2)
-    valid_f = valid.reshape(bn, 1).astype(jnp.float32)
-    top = n_levels - 1
-    g = init_pts.reshape(bn, 2) / float(2 ** top) + _PAD_IMG
-
-    ok = valid_f
-    eig0 = jnp.zeros((bn, 1), jnp.float32)
-    err0 = jnp.zeros((bn, 1), jnp.float32)
-
-    for lvl in range(top, -1, -1):
-        th, tw = true_shapes[lvl]
-        prev = jnp.pad(prev_levels[lvl],
-                       ((0, 0), (_PAD_IMG, _PAD_IMG), (_PAD_IMG, _PAD_IMG)),
-                       mode="edge")
-        cur = jnp.pad(cur_levels[lvl],
-                      ((0, 0), (_PAD_IMG, _PAD_IMG), (_PAD_IMG, _PAD_IMG)),
-                      mode="edge")
-        hp, wp = prev.shape[1:]
-        q = q0 / float(2 ** lvl) + _PAD_IMG
-
-        # patch origins (XLA-side; the kernel receives strips + origins)
-        def origin(pts):
-            p = jnp.nan_to_num(pts)
-            x = jnp.clip(jnp.floor(p[:, 0]).astype(jnp.int32) - _PAD,
-                         0, wp - PATCH)
-            y = jnp.clip(jnp.floor(p[:, 1]).astype(jnp.int32) - _PAD,
-                         0, hp - PATCH)
-            return x, y
-
-        px0, py0 = origin(q)
-        cx0, cy0 = origin(g)
-        po = jnp.stack([px0, py0], -1).astype(jnp.float32)     # [bn, 2]
-        co = jnp.stack([cx0, cy0], -1).astype(jnp.float32)
-        prev_rows = _row_strips(prev, py0, N)                  # [bn,40,Wp]
-        cur_rows = _row_strips(cur, cy0, N)
-
-        # wide levels: column selection hoisted to XLA as well, so the
-        # kernel's VMEM working set stays image-size-independent (this is
-        # what admits 640-wide level 0 — the reference's native camera
-        # resolution, launch/sensorRig1.launch:20)
-        from_patches = _prep_vmem_bytes(wp) > 12 * 1024 * 1024
-        if from_patches:
-            prev_rows = _col_patches(prev_rows, px0)           # [bn,40,40]
-            cur_rows = _col_patches(cur_rows, cx0)
-        in_w = PATCH if from_patches else wp
-
-        emit_cs = lvl == 0
-        prep = functools.partial(_prep_kernel, win=win, emit_cs=emit_cs,
-                                 from_patches=from_patches)
-        out_shapes = [
-            jax.ShapeDtypeStruct((bn, 2, _TW), jnp.float32),  # corr
-            jax.ShapeDtypeStruct((bn, 4), jnp.float32),            # hinv
-            jax.ShapeDtypeStruct((bn, 2), jnp.float32),            # a
-            jax.ShapeDtypeStruct((bn, 1), jnp.float32),            # min_eig
-            jax.ShapeDtypeStruct((bn, 2), jnp.float32),            # co
-            jax.ShapeDtypeStruct((bn, PATCH, PATCH) if emit_cs else (1, 1, 1),
-                                 jnp.bfloat16),                    # cs
-            jax.ShapeDtypeStruct((bn, win, win) if emit_cs else (1, 1, 1),
-                                 jnp.float32),                     # tpl
-        ]
-        grid_spec = pl.GridSpec(
-            grid=(bn // _BLK,),
-            in_specs=[
-                pl.BlockSpec((_BLK, PATCH, in_w), lambda i: (i, 0, 0)),
-                pl.BlockSpec((_BLK, PATCH, in_w), lambda i: (i, 0, 0)),
-                pl.BlockSpec((_BLK, 1), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 1), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((_BLK, 2, _TW), lambda i: (i, 0, 0)),
-                pl.BlockSpec((_BLK, 4), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 1), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, 2), lambda i: (i, 0)),
-                pl.BlockSpec((_BLK, PATCH, PATCH) if emit_cs else (1, 1, 1),
-                             (lambda i: (i, 0, 0)) if emit_cs
-                             else (lambda i: (0, 0, 0))),
-                pl.BlockSpec((_BLK, win, win) if emit_cs else (1, 1, 1),
-                             (lambda i: (i, 0, 0)) if emit_cs
-                             else (lambda i: (0, 0, 0))),
-            ],
-        )
-        corr, hinv, a, me, co, cs, tpl = pl.pallas_call(
-            prep, grid_spec=grid_spec, out_shape=out_shapes,
-            interpret=interpret,
-        )(prev_rows, cur_rows, px0[:, None], cx0[:, None], q, g, po, co)
-
-        # iter-kernel block: bigger blocks amortize grid overhead, but the
-        # XLA-side operand staging for the [blk2, 2, _TW] corr blocks is
-        # charged against the 16 MB scoped-VMEM budget — at flat batches
-        # >= 2048 a 256-row block measures 60 KB OVER the limit, so tier
-        # the block down with the flat batch size
-        if bn % _BLK2 == 0 and bn <= 1024:
-            blk2 = _BLK2
-        elif bn % 128 == 0 and bn <= 8192:
-            # 128-row blocks verified to fit scoped VMEM through bn=8192
-            # (b64 x 128 slots); dropping to 32-row blocks at bn>4096 was
-            # the b64<b16 aggregate-fps inversion (r4 weak #1) — 4x the
-            # iter-kernel grid programs for no VMEM benefit
-            blk2 = 128
-        else:
-            blk2 = _BLK
-        itk = functools.partial(
-            _iter_kernel, win=win, iters=iters, eps=eps,
-            min_eigen=(min_eigen if lvl == 0 else -1.0),
-            true_h=th, true_w=tw, emit_err=emit_cs)
-        it_out_shapes = [
-            jax.ShapeDtypeStruct((bn, 2), jnp.float32),   # g
-            jax.ShapeDtypeStruct((bn, 1), jnp.float32),   # ok
-            jax.ShapeDtypeStruct((bn, 1), jnp.float32),   # min_eig
-            jax.ShapeDtypeStruct((bn, 1), jnp.float32),   # err
-        ]
-        it_grid = pl.GridSpec(
-            grid=(bn // blk2,),
-            in_specs=[
-                pl.BlockSpec((blk2, 2, _TW), lambda i: (i, 0, 0)),
-                pl.BlockSpec((blk2, 4), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 2), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 1), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 2), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 2), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 2), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 1), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, PATCH, PATCH) if emit_cs else (1, 1, 1),
-                             (lambda i: (i, 0, 0)) if emit_cs
-                             else (lambda i: (0, 0, 0))),
-                pl.BlockSpec((blk2, win, win) if emit_cs else (1, 1, 1),
-                             (lambda i: (i, 0, 0)) if emit_cs
-                             else (lambda i: (0, 0, 0))),
-            ],
-            out_specs=[
-                pl.BlockSpec((blk2, 2), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 1), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 1), lambda i: (i, 0)),
-                pl.BlockSpec((blk2, 1), lambda i: (i, 0)),
-            ],
-        )
-        g, lv_ok, lv_eig, lv_err = pl.pallas_call(
-            itk, grid_spec=it_grid, out_shape=it_out_shapes,
-            interpret=interpret,
-        )(corr, hinv, a, me, co, q, g, ok, cs, tpl)
-
-        ok = ok * lv_ok
-        if lvl > 0:
-            g = (g - _PAD_IMG) * 2.0 + _PAD_IMG
-        else:
-            eig0, err0 = lv_eig, lv_err
-
-    pts = g - _PAD_IMG
-    return (pts.reshape(B, N, 2), (ok > 0.5).reshape(B, N),
-            err0.reshape(B, N), eig0.reshape(B, N))
+                   *, win, iters, eps, min_eigen, interpret):
+    """prev_levels/cur_levels: tuples of [B, Hl, Wl] level images (finest
+    first; only the levels the tracker uses).  prev_pts/init_pts:
+    [B, N, 2] level-0 px.  valid: [B, N] bool.
+    Returns (points [B,N,2], ok [B,N], err [B,N], min_eig [B,N])."""
+    b, n, _ = prev_pts.shape
+    bn = b * n
+    # dead slots may hold NaN; the kernel sees finite coordinates only
+    finite = jnp.isfinite(prev_pts).all(-1) & jnp.isfinite(init_pts).all(-1)
+    use = valid & finite
+    q = jnp.where(use[..., None], prev_pts, 0.0).reshape(bn, 2)
+    g = jnp.where(use[..., None], init_pts, 0.0).reshape(bn, 2)
+    shapes = tuple(l.shape[1:] for l in prev_levels)
+    kernel = functools.partial(
+        _lk_kernel, shapes=shapes, n_per_lane=n, win=win, iters=iters,
+        eps=eps, min_eigen=min_eigen)
+    f32 = jax.ShapeDtypeStruct((bn,), jnp.float32)
+    ox, oy, ok, err, eig = pl.pallas_call(
+        kernel,
+        grid=(bn,),
+        out_shape=(f32, f32, jax.ShapeDtypeStruct((bn,), jnp.int32), f32,
+                   f32),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="pallas_lk",
+    )(*(l.astype(jnp.bfloat16) for l in prev_levels),
+      *(l.astype(jnp.bfloat16) for l in cur_levels),
+      q[:, 0], q[:, 1], g[:, 0], g[:, 1], use.reshape(bn).astype(jnp.int32))
+    pts = jnp.where(use[..., None], jnp.stack([ox, oy], -1).reshape(b, n, 2),
+                    init_pts)
+    return (pts, (ok > 0).reshape(b, n), err.reshape(b, n),
+            eig.reshape(b, n))
 
 
 @functools.lru_cache(maxsize=16)
-def _make_tracker(level_shapes, win, iters, eps, min_eigen, interpret):
-    """custom_vmap-wrapped tracker for static (level shapes, LK params).
+def _make_tracker(win, iters, eps, min_eigen, interpret):
+    """custom_vmap-wrapped tracker for static LK parameters.
 
-    level_shapes: tuple of (h, w) for the levels USED (finest first).
     The single-sequence call runs the batched kernel at B=1; a vmap over
-    it (parallel/batched_engine.py) re-targets the natively batched
-    kernel instead of lifting the grid.
-    """
+    it (parallel/batched_engine.py) re-targets the batched kernel instead
+    of lifting the grid."""
     kw = dict(win=win, iters=iters, eps=eps, min_eigen=min_eigen,
-              true_shapes=level_shapes, interpret=interpret)
+              interpret=interpret)
 
     @jax.custom_batching.custom_vmap
     def track_one(prev_levels, cur_levels, prev_pts, init_pts, valid):
-        pl_ = tuple(l[None] for l in prev_levels)
-        cl_ = tuple(l[None] for l in cur_levels)
-        pts, ok, err, eig = _track_batched(
-            pl_, cl_, prev_pts[None], init_pts[None], valid[None], **kw)
-        return pts[0], ok[0], err[0], eig[0]
+        out = _track_batched(
+            tuple(l[None] for l in prev_levels),
+            tuple(l[None] for l in cur_levels),
+            prev_pts[None], init_pts[None], valid[None], **kw)
+        return tuple(o[0] for o in out)
 
     @track_one.def_vmap
     def _rule(axis_size, in_batched, prev_levels, cur_levels,
               prev_pts, init_pts, valid):
-        def bc(x, b):
-            return x if b else jnp.broadcast_to(x, (axis_size,) + x.shape)
+        def bc(x, batched):
+            return x if batched else jnp.broadcast_to(
+                x, (axis_size,) + x.shape)
 
-        pl_ = tuple(bc(l, b) for l, b in zip(prev_levels, in_batched[0]))
-        cl_ = tuple(bc(l, b) for l, b in zip(cur_levels, in_batched[1]))
         out = _track_batched(
-            pl_, cl_, bc(prev_pts, in_batched[2]),
-            bc(init_pts, in_batched[3]), bc(valid, in_batched[4]), **kw)
+            tuple(bc(l, b) for l, b in zip(prev_levels, in_batched[0])),
+            tuple(bc(l, b) for l, b in zip(cur_levels, in_batched[1])),
+            bc(prev_pts, in_batched[2]), bc(init_pts, in_batched[3]),
+            bc(valid, in_batched[4]), **kw)
         return out, (True, True, True, True)
 
     return track_one
 
 
-def _prep_vmem_bytes(wp: int) -> int:
-    """Estimated VMEM working set of one prep-kernel program (bytes).
-
-    The image itself never enters the kernel (row extraction is a
-    per-lane XLA matmul, ``_row_strips``); what scales with the image is
-    only the strip WIDTH: two [BLK, PATCH, Wp] bf16 input strips (double-
-    buffered across grid steps) plus their in-kernel column selectors,
-    and the image-independent intermediates (corr-table bmm output T,
-    the lane-shifted cs2 stack, patches).
-    """
-    strips = 2 * 2 * _BLK * PATCH * wp * 2             # 2 imgs x dbl-buffer
-    colsel = 2 * _BLK * PATCH * wp * 2                 # [B,40,W] bf16 x 2
-    fixed = (_BLK * 42 * 576 * 4        # T (corr bmm output, f32)
-             + _BLK * 576 * 21 * 2      # cs2 lane-shift stack, bf16
-             + 3 * _BLK * PATCH * PATCH * 4            # ps/gx/gy f32
-             + _BLK * 2 * _TW * 4                      # corr output
-             + 2 * _BLK * PATCH * PATCH * 4)           # ps/cs f32
-    return strips + colsel + fixed
-
-
-def supported(level0_shape, n: int, win: int = 21) -> bool:
-    """Fused-path applicability.
-
-    * the corr-table geometry (_PAD/_DT/_KR/_TW) is derived for the
-      reference's 21x21 window (Params.h:104) — other window sizes must
-      take the XLA path;
-    * feature count must tile the prep block.
-
-    Image size does NOT constrain the path: narrow levels keep column
-    selection inside the prep kernel (strips in VMEM); wide levels (the
-    reference's native 640x480, launch/sensorRig1.launch:20) hoist it to
-    an XLA batched one-hot bmm (``_col_patches``) so the kernel working
-    set is image-size-independent.  The per-level switch is
-    ``_prep_vmem_bytes`` in ``_track_batched``.
-    """
-    return win == 21 and n % _BLK == 0
-
-
 def track(prev_pyr, cur_pyr, prev_pts, init_pts, valid, cfg,
           interpret=False):
-    """Fused pyramid track with the XLA path's level-selection rule.
-
-    Same contract as klt.track minus the TrackResult wrapper: returns
-    (points, status, error, min_eig), level-0 px coordinates.
-    """
+    """Fused pyramid track.  Same contract as klt.track minus the
+    TrackResult wrapper: returns (points, status, error, min_eig) in
+    level-0 px coordinates."""
     win = cfg.klt_window_size
-    assert supported(prev_pyr[0].shape, prev_pts.shape[0], win), (
-        "pallas_lk.track called outside its supported() envelope "
-        f"(win={win}, n={prev_pts.shape[0]}) — the corr-table geometry "
-        "requires win == 21 and n % 32 == 0; use klt.track for dispatch")
-    shapes = tuple(l.shape for l in prev_pyr)
-    top = 0
-    for lvl in range(len(shapes)):
-        if min(shapes[lvl]) >= win:
-            top = lvl
-    used = tuple(shapes[: top + 1])
-    tracker = _make_tracker(used, win, cfg.klt_iterations, cfg.klt_eps,
+    if not supported(prev_pts.shape[0], win):
+        raise ValueError(
+            f"pallas_lk.track called outside supported() (win={win}, "
+            f"n={prev_pts.shape[0]}); use klt.track for dispatch")
+    top = pyramid.top_tracked_level(prev_pyr, win)
+    tracker = _make_tracker(win, cfg.klt_iterations, cfg.klt_eps,
                             cfg.klt_min_eigen, interpret)
     return tracker(tuple(prev_pyr[: top + 1]), tuple(cur_pyr[: top + 1]),
                    prev_pts, init_pts, valid)
+

@@ -6,9 +6,7 @@ struct (KLTTracker.h:29-83) used only by its smoke test.  Here the pyramid
 is an explicit tuple of arrays so levels have static shapes under jit, and
 the 5-tap binomial smoothing + 2x decimation matches cv::pyrDown's kernel.
 
-All ops are separable convolutions — pure VPU work that XLA fuses; a
-Pallas variant is unnecessary because conv is already near bandwidth
-bound.
+All ops are separable convolutions — elementwise work that XLA fuses.
 """
 from __future__ import annotations
 
@@ -31,10 +29,9 @@ def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
     """Blur + take even rows/cols (cv::pyrDown semantics).
 
     The decimation is phrased as reshape-to-phases + unit slice instead
-    of ``[::2, ::2]``: the strided slice lowers to a scalar gather fusion
-    on TPU (measured 236 us per 320x240 build step — the single largest
-    op in the mono-inertial rollout trace), while the phase reshape is a
-    layout-friendly contiguous slice (45 us, bit-identical output)."""
+    of ``[::2, ::2]`` (bit-identical output), a form chosen on a machine
+    where strided slices were slow; on the GPU it is not yet A/B'd
+    against the plain slice (ROADMAP queue 3, item 2)."""
     f = _sep_filter5(img)
     h, w = f.shape
     if h % 2:  # [::2] keeps ceil(h/2) samples incl. the last row/col
@@ -54,6 +51,18 @@ def build_pyramid(img: jnp.ndarray, levels: int) -> tuple:
     for _ in range(levels):
         out.append(pyr_down(out[-1]))
     return tuple(out)
+
+
+def top_tracked_level(pyr, win: int) -> int:
+    """Index of the coarsest level the tracker uses.  Levels smaller than
+    the tracking window are skipped (cv::buildOpticalFlowPyramid clamps
+    maxLevel the same way): a 21x21 window on a 16x16 level only aliases
+    border content."""
+    top = 0
+    for lvl, level in enumerate(pyr):
+        if min(level.shape[-2:]) >= win:
+            top = lvl
+    return top
 
 
 def gradients(img: jnp.ndarray):

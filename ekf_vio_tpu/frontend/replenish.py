@@ -6,8 +6,8 @@ feature into a mask image, then walks cv::FAST keypoints in scan order,
 skipping masked / out-of-kill-box ones and stamping accepted ones into the
 mask, until NUM_FEATURES is reached.
 
-That greedy serial stamping cannot parallelize; the TPU-native equivalent
-is grid-cell binning (the standard SLAM front-end formulation): the frame
+That greedy serial stamping cannot parallelize; the data-parallel
+equivalent is grid-cell binning (the standard SLAM front-end formulation): the frame
 is tiled into cells of ~min_new_feature_dist, a cell is blocked when an
 existing feature lies within min_dist of its center, and each free cell
 contributes its single best corner — mutual separation is enforced by the
@@ -95,9 +95,7 @@ def replenish(
     """Full replenishment: blur → FAST → NMS → spatial selection.
 
     needed = num_features − #active (EKFVIO.cpp:236-244)."""
-    from ekf_vio_tpu.frontend import pallas_fast
-
     work = fast.gaussian_blur(img, cfg.fast_blur_sigma)
-    score = pallas_fast.detect(work, cfg.fast_threshold, nms=True)
+    score = fast.detect(work, cfg.fast_threshold, nms=True)
     needed = cfg.num_features - jnp.sum(existing_valid.astype(jnp.int32))
     return select_candidates(score, existing_px, existing_valid, needed, cfg, k_max)

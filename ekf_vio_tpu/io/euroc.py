@@ -131,7 +131,7 @@ def load_images(seq: EurocSequence, start=0, count=None, inverse_scale=4,
     overlapped across worker threads, the ingest role ROS image_transport
     plays for the reference, EKFVIO.cpp:69-71), falling back to a cv2 loop
     when the shared library is unavailable; undistortion is a cv2 radtan
-    remap sized to the actual decoded frames (host-side IO — the TPU
+    remap sized to the actual decoded frames (host-side IO — the device
     pipeline starts at the array boundary).
     """
     import cv2

@@ -4,7 +4,7 @@ Covers BASELINE.json configs 4 and 5: many sequences data-parallel across
 chips, and large filter states with the covariance block-partitioned over
 the ``state`` mesh axis.  The batch dimension is a plain ``vmap``; the
 covariance partition is expressed as sharding constraints and GSPMD
-compiles the blocked covariance algebra into sharded MXU matmuls with ICI
+compiles the blocked covariance algebra into sharded matmuls with
 collectives — no hand-written communication (SURVEY.md §2.2 item 3).
 """
 from __future__ import annotations

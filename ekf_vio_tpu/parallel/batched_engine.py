@@ -17,13 +17,11 @@ from ekf_vio_tpu import engine
 from ekf_vio_tpu.config import VIOConfig
 
 
-# Most-efficient per-chip lane count, measured (benchmarks/
-# batch_scaling.json): per-lane step time falls until B=16, then RISES —
-# at B=64 XLA's layout assignment starts materializing batch-minor
-# transposes of the per-lane pyramids and the tracker's working set spills
-# double-buffering.  Larger batches therefore run as sequential
-# micro-batches of this size (standard serving practice), which keeps the
-# aggregate curve monotone at the B=16 per-lane rate.
+# Lanes per device program.  Larger batches run as sequential
+# micro-batches of this size (standard serving practice).  16 was the
+# per-lane optimum on the machine the engine was first built for; on the
+# GPU it is not measured yet (benchmarks/batch_scaling.py draws the
+# curve; ROADMAP queue 2, item 3).
 MICROBATCH = 16
 
 
@@ -54,10 +52,18 @@ def run_sequences_batched(images, times, cfg: VIOConfig, cam,
 
 
 def run_sequences_sharded(images, times, cfg: VIOConfig, cam, mesh: Mesh):
-    """Same, with the batch axis sharded over the mesh's ``data`` axis —
-    each device (group) runs its own sequences; zero collectives on the
-    steady-state path."""
-    sh = NamedSharding(mesh, P("data"))
-    images = jax.device_put(images, NamedSharding(mesh, P("data", None, None, None)))
-    times = jax.device_put(times, NamedSharding(mesh, P("data", None)))
-    return run_sequences_batched(images, times, cfg, cam)
+    """Same, with the batch axis split over the mesh's ``data`` axis:
+    each device runs its own sequences (``shard_map``, so a kernel in the
+    step runs per device on its shard); zero collectives.  The batch must
+    divide by the axis size."""
+    spec = NamedSharding(mesh, P("data"))
+    return _run_sharded(jax.device_put(images, spec),
+                        jax.device_put(times, spec), cfg, cam, mesh)
+
+
+@partial(jax.jit, static_argnames=("cfg", "cam", "mesh"))
+def _run_sharded(images, times, cfg: VIOConfig, cam, mesh: Mesh):
+    return jax.shard_map(
+        lambda im, t: run_sequences_batched(im, t, cfg, cam),
+        mesh=mesh, in_specs=(P("data"), P("data")), out_specs=P("data"),
+        check_vma=False)(images, times)

@@ -1,17 +1,17 @@
 """Device-mesh construction and sharding rules.
 
 The reference has zero parallelism (single-threaded ROS callbacks,
-SURVEY.md §2.2); every axis here is new TPU-native design:
+SURVEY.md §2.2); every axis here is new design:
 
 * ``data``  — batch of independent video sequences (data parallelism;
   the EuRoC multi-sequence config)
 * ``state`` — block partition of the filter covariance's trailing
   dimension for large-N filters; GSPMD turns the blocked covariance
-  matmuls into sharded matmuls with ICI collectives
+  matmuls into sharded matmuls with collectives
 
-The communication backend is XLA collectives over ICI/DCN via
-``jax.sharding`` — the TPU-native equivalent of the NCCL/MPI layer a GPU
-framework would hand-roll.
+The communication backend is XLA collectives via ``jax.sharding`` (NCCL
+on GPUs), in place of a hand-rolled NCCL/MPI layer.  The cards of one
+host are joined all to all, so a mesh follows the algorithm alone.
 """
 from __future__ import annotations
 

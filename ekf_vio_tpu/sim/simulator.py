@@ -7,8 +7,7 @@ the *same* motion model as the filter, and noiseless projected
 measurements with constant covariance diag(1e-5) fed back into the update.
 This exercises the full predict/update math with no image pipeline.
 
-TPU-native: the whole rollout is one ``lax.scan`` over time, jitted end to
-end; scenario generation uses ``jax.random`` with fixed seeds.
+The whole rollout is one ``lax.scan`` over time, jitted end to end; scenario generation uses ``jax.random`` with fixed seeds.
 """
 from __future__ import annotations
 

@@ -4,12 +4,12 @@ The reference's whole observability story is a per-frame wall-clock
 running average printed from the camera callback plus ad-hoc
 ``ros::Time::now()`` deltas in tests (reference: EKFVIO.cpp:119-135,
 test/test_ekf.cpp:88-141); an ``ANALYZE_RUNTIME`` flag exists but gates
-nothing (Params.h:31).  The TPU-native equivalents:
+nothing (Params.h:31).  The equivalents here:
 
 * ``FrameTimer`` — the same running-average frames/s meter, host-side.
 * ``trace`` — a context manager around ``jax.profiler`` that writes an
   XPlane trace viewable in TensorBoard/Perfetto (the real device-side
-  story: per-kernel HLO timings, HBM traffic, MXU utilization).
+  story: per-kernel device timings and memory traffic).
 * ``device_timer`` — median device latency of a compiled callable, the
   measurement recipe every micro-benchmark here uses.
 """

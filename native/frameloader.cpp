@@ -1,7 +1,7 @@
 // Native frame loader: threaded PNG decode -> grayscale float32 frames.
 //
 // The reference ingests frames through ROS (image_transport + cv_bridge,
-// reference: EKFVIO.cpp:69-71,117-126). The TPU-native equivalent is a
+// reference: EKFVIO.cpp:69-71,117-126). The equivalent here is a
 // host-side prefetcher that keeps the accelerator fed: a pool of decoder
 // threads reads PNGs (libpng), converts to grayscale float32, optionally
 // box-downscales by an integer factor (the Frame::INVERSE_IMAGE_SCALE

@@ -309,8 +309,7 @@ class TestJosephForms:
 
 class TestIndexAlgebraHelpers:
     """Gather/scatter-free index helpers (core/state.py) vs their naive
-    advanced-indexing definitions — the round-5 TPU-trap replacements
-    must be exact."""
+    advanced-indexing definitions — the replacements must be exact."""
 
     def test_uv_rows_cols_diag(self):
         import numpy as np

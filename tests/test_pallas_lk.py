@@ -1,13 +1,12 @@
-"""Parity tests for the fused corr-table LK tracker (frontend/pallas_lk.py)
-— the DEFAULT TPU tracking path — against the XLA reference tracker
-(frontend/klt.py), in Pallas interpret mode on the CPU test mesh.
+"""Parity tests for the fused LK tracker kernel (frontend/pallas_lk.py)
+— the GPU tracking path — against the XLA reference tracker
+(frontend/klt.py), in Pallas interpret mode on the CPU.
 
 Covers the semantics the reference pins in KLTTracker.cpp:61-95:
 initial-flow seeding, multi-level handoff, min-eigen gating, border/
 search-margin track loss, err/min_eig outputs, invalid rows, and the
-custom_vmap batched path.  The compiled-path (real TPU) check lives in
-tests/test_tpu_hardware.py + bench.py, which assert the backend actually
-selected.
+custom_vmap batched path.  The compiled kernel is checked on the card by
+tests/test_gpu_hardware.py and chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -39,7 +38,7 @@ def _scene(h=128, w=192, n=32, shift=(1.6, -2.4), shear=0.0, seed=3):
 def _run_both(prev, cur, q, init, valid, cfg, levels=2):
     prev_pyr = pyramid.build_pyramid(prev, levels)
     cur_pyr = pyramid.build_pyramid(cur, levels)
-    ref = klt.track(prev_pyr, cur_pyr, q, init, valid, cfg)  # XLA (CPU)
+    ref = klt.track_xla(prev_pyr, cur_pyr, q, init, valid, cfg)
     got = pallas_lk.track(prev_pyr, cur_pyr, q, init, valid, cfg,
                           interpret=True)
     return ref, got
@@ -77,9 +76,8 @@ class TestPallasLKParity:
 
     @pytest.mark.slow
     def test_wide_level_parity(self):
-        """640-wide level 0 takes the XLA-hoisted column-selection path
-        (_col_patches, image-size-independent kernel VMEM) — parity with
-        the XLA tracker at the reference's native resolution."""
+        """640-wide level 0 (the reference's native resolution): parity
+        with the XLA tracker over a 3-level pyramid."""
         prev, cur, q = _scene(h=480, w=640, n=32, shift=(1.2, -2.0))
         cfg = VIOConfig(max_features=32)
         valid = jnp.ones(32, bool)
@@ -212,24 +210,38 @@ class TestPallasLKParity:
 
 class TestSupportedGate:
     def test_window_size_gate(self):
-        """Corr-table constants are derived for win=21 (ADVICE r3): any
-        other window size must be rejected, not mis-shaped."""
-        assert pallas_lk.supported((120, 160), 128, win=21)
-        assert not pallas_lk.supported((120, 160), 128, win=25)
-        assert not pallas_lk.supported((120, 160), 128, win=15)
+        """The flattened window must fit one 1024-lane block: windows up
+        to 32x32 are covered, larger ones are rejected, not mis-shaped."""
+        assert pallas_lk.supported(128, win=21)
+        assert pallas_lk.supported(128, win=15)
+        assert pallas_lk.supported(128, win=31)
+        assert not pallas_lk.supported(128, win=33)
 
     def test_block_and_vmem_gates(self):
-        assert not pallas_lk.supported((120, 160), 100, win=21)  # n%32
-        assert pallas_lk.supported((240, 320), 128, win=21)
-        # 640x480 level-0 is covered too (wide levels hoist column
-        # selection to XLA, _col_patches — the kernel working set is
-        # image-size-independent)
-        assert pallas_lk.supported((480, 640), 128, win=21)
-        # ... and the wide path is what that level selects internally
-        assert pallas_lk._prep_vmem_bytes(640 + 2 * pallas_lk._PAD_IMG) \
-            > 12 * 1024 * 1024
+        """One program per feature: any feature count; the image size is
+        not a parameter at all."""
+        assert pallas_lk.supported(100, win=21)
+        assert pallas_lk.supported(512, win=21)
+        assert pallas_lk.supported(128, win=21)
+        assert not pallas_lk.supported(0, win=21)
 
     def test_dispatch_respects_window_size(self):
-        """klt.selected_backend never picks the fused path for win!=21."""
-        cfg = VIOConfig(max_features=128, klt_window_size=17)
-        assert klt.selected_backend((120, 160), 128, cfg) != "pallas_lk"
+        """klt.selected_backend never picks the kernel for a window it
+        does not cover, and never off the GPU."""
+        from unittest import mock
+
+        cfg = VIOConfig(max_features=128, klt_window_size=33)
+        with mock.patch.object(jax, "default_backend", lambda: "gpu"):
+            assert klt.selected_backend((120, 160), 128, cfg) == "xla"
+        assert klt.selected_backend(
+            (120, 160), 128, cfg.replace(klt_window_size=21)) == "xla"
+
+
+@pytest.mark.parametrize("win", [15, 17])
+def test_other_window_sizes_match_xla(win):
+    """The kernel is not tied to the reference's 21x21 window."""
+    prev, cur, q = _scene()
+    cfg = VIOConfig(max_features=32, klt_window_size=win)
+    ref, got = _run_both(prev, cur, q, q, jnp.ones(32, bool), cfg)
+    assert np.asarray(ref.status).sum() >= 24
+    _assert_parity(ref, got)

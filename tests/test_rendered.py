@@ -170,7 +170,7 @@ def test_mono_inertial_calibrated_nees_nis_in_band():
     # Position NEES is order-of-magnitude only on a SHORT run: the first
     # seconds are dominated by the VI-init transient error against a
     # still-small P (measured ~12-17 here; the 300-frame benchmark run
-    # averages to 3.0 — benchmarks/consistency_diag.json).  Both the
+    # averages to 3.0 — benchmarks/consistency_diag.py).  Both the
     # 1/50-overconservative regime the r4 review flagged (NEES ~0.1) and
     # a divergent filter (NEES > 100) stay outside these gates.
     assert 1.0 < m_nees < 40.0, f"position NEES off-band: {m_nees:.2f}"

@@ -100,8 +100,8 @@ class TestClosedLoop:
     @pytest.mark.parametrize("scn_idx", [1, 5])
     def test_scenario_converges_no_jitter(self, scn_idx):
         """Closed-loop sim entirely in sqrt form, spectral floor off:
-        invariants hold and features converge (the dense form needs the
-        floor on TPU at ~100 features; sqrt must not)."""
+        invariants hold and features converge (the dense form can need
+        the floor at ~100 features; sqrt must not)."""
         cfg = VIOConfig(max_features=32, sigma_jitter_rel=0.0,
                         sigma_jitter=0.0, square_root_form=True)
         scn = simulator.REFERENCE_SCENARIOS[scn_idx]
@@ -233,7 +233,7 @@ class TestFactorNative:
         base = dict(max_features=32, min_new_feature_dist=10.0,
                     fast_threshold=25)
         # floor-off on both: the spectral floor is a covariance-form
-        # TPU workaround; with it on, the dense gains differ by the
+        # workaround; with it on, the dense gains differ by the
         # regularization, not by arithmetic error
         cfg_d = VIOConfig(**base, sigma_jitter_rel=0.0)
         cfg_s = VIOConfig(**base, square_root_form=True,
